@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's face-detection main path once on an NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on an NVIDIA GPU: the face
+path and the part chain (nose, mouth, eyes).
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
 Phases, each printing its findings, any failure ending the run non-zero:
 
 1. device check: CUDA present; card name and power limit; torch/CUDA;
-2. build: compile ``csrc/pyramid_dense.cu`` with nvcc (ptxas report);
-3. kernel vs plain version: on B=64 synthetic 1280x720 (and 640x480)
-   frames resized and equalized on the card, every level image, ``vnf`` and
-   ``alive`` of the kernel must equal ``pyramid_dense_phase_reference`` on
-   the same CUDA tensors exactly;
-4. main path: ``FaceDetector((1280, 720), device="cuda").process`` over
-   consecutive batches of one stream; the kernel must launch once per
-   batch, at least one face must be tracked, and the tracked faces (ids and
-   rects) must equal the same port run on the CPU frame by frame; the raw
-   candidates of the CUDA engine must equal the CPU engine's;
-5. times: kernel and plain version ms per B=64 720p batch (CUDA events),
-   the on-device detection path's ms per batch, and ``process()`` frames/s.
+2. build: compile the three CUDA sources with nvcc, one process each, all
+   started together (ptxas registers, spills and shared memory per kernel);
+3. kernels vs plain versions, exactly, on the same CUDA tensors:
+   the pyramid dense kernel on B=64 synthetic 1280x720 (and 640x480) face
+   work images and noise (level images, vnf, alive); at the part chain's
+   320x180, the tilted level kernel on every level of the mouth's and eyes'
+   tilted route (ii, iit, vnf, alive), the row-strip kernel on the nose's
+   four strip levels and with one strip on a pyramid-sized level (vnf,
+   alive), and the integral kernel on the six large tilted levels;
+4. face path: ``FaceDetector((1280, 720), device="cuda").process`` over
+   consecutive batches of one stream; the pyramid kernel must launch once
+   per batch, at least one face must be tracked, and the tracked faces
+   (ids and rects) and the engine's raw candidates must equal the port's
+   CPU run;
+5. part path: ``NoseDetector``, ``MouthDetector`` and ``EyeDetector`` at
+   1280x720 on the card over two batches of one stream: every kernel
+   launches as often as the engines' level routes predict; per-frame
+   outputs, grouped faces and compacted raw part candidates (with their
+   overflow flags) equal the port's CPU run; nose boxes, mouth candidates
+   and alive windows after the dense phase of every tilted engine are
+   non-zero;
+6. times (CUDA events, kernel and plain version in turns): each kernel at
+   the main paths' shapes with its plain version, its bound from the
+   shapes and this run's data, and for the integral kernel the
+   ``torch.cumsum`` pair; the face path's device ms per batch; each
+   detector's ``process()`` frames/s at B=64 720p.
 
 The last lines are the kernel summary as JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
@@ -26,6 +41,7 @@ The last lines are the kernel summary as JSON, the card's
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -38,18 +54,43 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from nubomedia_vca_tpu_torch.cascade.engine import get_engine  # noqa: E402
+from nubomedia_vca_tpu_torch.models import (  # noqa: E402
+    EyeDetector, FaceDetector, MouthDetector, NoseDetector)
 from nubomedia_vca_tpu_torch.models.face import (  # noqa: E402
-    DEFAULT_FACE_CASCADE, FaceDetector)
-from nubomedia_vca_tpu_torch.ops.cuda import _build, dense_cuda  # noqa: E402
+    DEFAULT_FACE_CASCADE)
+from nubomedia_vca_tpu_torch.ops.cuda import (  # noqa: E402
+    _build, dense_cuda, dense_level_cuda, integral_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
 from nubomedia_vca_tpu_torch.utils.synth import face_clip  # noqa: E402
 
-KERNEL_SOURCE = "nubomedia_vca_tpu_torch/csrc/pyramid_dense.cu"
-KERNEL_REPLACES = "nubomedia_vca_tpu/ops/pallas/dense_pallas.py:371"
 FRAME = (1280, 720)
 BATCH = 64
+PART_BATCHES = 2       # consecutive batches of one stream on the part path
+PART_BATCH = 4         # frames per part-path batch
+# NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the
+# float32 rate outside the tensor cores, which the dense kernels' integer
+# adds and float32 compares run at
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+PALLAS = "nubomedia_vca_tpu/ops/pallas"
+CSRC = "nubomedia_vca_tpu_torch/csrc"
+KERNELS = {   # name → (launch counter, source, TPU kernel replaced)
+    "pyramid_dense_phase": (dense_cuda.pyramid_dense_phase,
+                            f"{CSRC}/pyramid_dense.cu",
+                            f"{PALLAS}/dense_pallas.py:371"),
+    "dense_level_tilted": (dense_level_cuda.dense_level_tilted,
+                           f"{CSRC}/dense_level.cu",
+                           f"{PALLAS}/dense_pallas.py:221"),
+    "dense_level_strips": (dense_level_cuda.dense_level_strips,
+                           f"{CSRC}/dense_level.cu",
+                           f"{PALLAS}/dense_pallas.py:276"),
+    "integral_tables": (integral_cuda.integral_tables,
+                        f"{CSRC}/integral_tables.cu",
+                        f"{PALLAS}/integral_pallas.py:52"),
+}
+DETECTORS = (NoseDetector, MouthDetector, EyeDetector)
 
 
 def phase(name: str) -> None:
@@ -78,31 +119,419 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def work_images(frames: np.ndarray, engine, dev) -> torch.Tensor:
+def in_turns(kernel, plain, n_kernel: int, n_plain: int):
+    """(kernel ms, plain ms, runs): plain, kernel, kernel, plain."""
+    runs = {"kernel": [], "plain": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn, n = (kernel, n_kernel) if which == "kernel" else (plain, n_plain)
+        runs[which].append(cuda_ms(fn, n))
+    return float(np.mean(runs["kernel"])), float(np.mean(runs["plain"])), runs
+
+
+def reset_counts() -> None:
+    for counter, _, _ in KERNELS.values():
+        counter.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {name: c.launches for name, (c, _, _) in KERNELS.items()}
+
+
+def work_images(frames, size, dev) -> torch.Tensor:
     gray = torch.from_numpy(frames).to(dev)
-    return equalize_hist(resize_linear_exact(
-        gray, (engine.image_w, engine.image_h)))
+    return equalize_hist(resize_linear_exact(gray, size))
 
 
-def compare_kernel(work: torch.Tensor, plan) -> tuple[float, int]:
-    """Kernel vs plain version on the same CUDA tensors → (max |vnf| error,
-    alive windows). Raises on any difference."""
-    got = dense_cuda.pyramid_dense_phase(work, plan)
-    want = dense_cuda.pyramid_dense_phase_reference(work, plan)
+def assert_equal(got, want, what: str) -> float:
+    """Exact equality of two tensors (None both or neither) → max |err|."""
+    if (got is None) != (want is None):
+        raise AssertionError(f"{what}: one side is None")
+    if got is None:
+        return 0.0
+    err = float((got.double() - want.double()).abs().max()) if got.numel() \
+        else 0.0
+    if not torch.equal(got, want):
+        n = int((got != want).sum())
+        raise AssertionError(f"{what}: differs in {n} elements (max {err})")
+    return err
+
+
+# ------------------------------------------------------------------ bounds
+def dense_ops(tables, vnf: torch.Tensor, alive: torch.Tensor) -> float:
+    """Operations the dense phase needs at least on this data: the
+    normalization of every window (8 table reads, 6 integer and 6 float32
+    operations), the first stage for every window with enough variance,
+    and every dense stage for the windows still alive. A weak tree is two
+    features (the root and the child it selects), a feature per rect 4
+    reads, 3 adds, a multiply and an add."""
+    d, fi = tables.dense, tables.host["feat_i"]
+    weak_cost = []
+    for k in range(len(d["stage"])):
+        rects = [fi[tables.host["weak_i"][k][j]][0] for j in (0, 1)]
+        weak_cost.append(sum(9 * r for r in rects) + 4)
+    stage = np.asarray(d["stage"])
+    first = float(sum(c for c, s in zip(weak_cost, stage) if s == 0))
+    every = float(sum(weak_cost))
+    n_win = vnf.numel()
+    n_valid = int((vnf != 1.0).sum())
+    n_alive = int(alive.sum())
+    return 20.0 * n_win + first * n_valid + every * n_alive
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms, "bytes" | "operations") on an H100 SXM at 700 W."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------------ phases
+def build_all() -> None:
+    names = ("pyramid_dense", "dense_level", "integral_tables")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        results = list(ex.map(_build.build_library, names))
+    for name, (path, log, seconds) in zip(names, results):
+        print(f"build: {path.name} in {seconds:.2f} s")
+        for line in log.splitlines():
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
+                print(f"  ptxas: {line.strip()}")
+
+
+def check_pyramid(dev, frames_by_size) -> float:
+    max_err = 0.0
+    for size, frames in frames_by_size.items():
+        eng = get_engine(DEFAULT_FACE_CASCADE,
+                         (160, round(size[1] * 160 / size[0])), 1.25,
+                         device=dev)
+        work = work_images(frames, (eng.image_w, eng.image_h), dev)
+        noise = torch.from_numpy(np.random.RandomState(5).randint(
+            0, 256, work.shape, np.uint8)).to(dev)
+        n_alive = []
+        for x in (work, noise):
+            got = dense_cuda.pyramid_dense_phase(x, eng._plan)
+            want = dense_cuda.pyramid_dense_phase_reference(x, eng._plan)
+            torch.cuda.synchronize()
+            for li, (g, w) in enumerate(zip(got, want)):
+                for gt, wt, what in zip(g, w, ("image", "vnf", "alive")):
+                    max_err = max(max_err, assert_equal(
+                        gt, wt, f"pyramid {size} level {li} {what}"))
+            n_alive.append(sum(int(a.sum()) for _, _, a in got))
+        print(f"pyramid kernel {size[0]}x{size[1]} -> work "
+              f"{eng.image_w}x{eng.image_h}, {len(eng.levels)} levels, "
+              f"B={BATCH}: == plain (level images, vnf, alive); alive "
+              f"windows {n_alive[0]} (faces) {n_alive[1]} (noise); smem "
+              f"{eng._plan.smem_bytes} B")
+    return max_err
+
+
+def part_engines(dev) -> dict:
+    """The part chain's engines at 1280x720, as the detectors build them."""
+    return {d.__name__: d(FRAME, device=dev) for d in DETECTORS}
+
+
+def check_level_kernels(dev, dets, part_frames) -> dict[str, float]:
+    """Tilted, strip and integral kernels vs their plain versions on the
+    part chain's levels; → max |err| per kernel."""
+    work = work_images(part_frames, (320, 180), dev)
+    noise = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 256, work.shape, np.uint8)).to(dev)
+    err = {"dense_level_tilted": 0.0, "dense_level_strips": 0.0,
+           "integral_tables": 0.0}
+    tilted = [(n, e) for d in dets.values()
+              for n, e in d.part_engines.items() if e._uses_tilt]
+    for name, eng in tilted:
+        n_alive = 0
+        for x in (work, noise):
+            for li, plan in eng._level_plans.items():
+                l = eng.levels[li]
+                img = resize_linear_exact(x, (l.sw, l.sh))
+                got = dense_level_cuda.dense_level_tilted(img, plan)
+                want = dense_level_cuda.dense_level_reference(img, plan)
+                for g, w, what in zip(got, want, ("ii", "iit", "vnf",
+                                                  "alive")):
+                    err["dense_level_tilted"] = max(
+                        err["dense_level_tilted"],
+                        assert_equal(g, w, f"{name} level {li} {what}"))
+                n_alive += int(got[3].sum())
+            for li in (li for li, r in enumerate(eng.routes)
+                       if r == "tables"):
+                l = eng.levels[li]
+                img = resize_linear_exact(x, (l.sw, l.sh))
+                got = integral_cuda.integral_tables(img)
+                want = integral_cuda.integral_tables_reference(img)
+                for g, w, what in zip(got, want, ("ii", "sq")):
+                    err["integral_tables"] = max(
+                        err["integral_tables"],
+                        assert_equal(g, w, f"{name} level {li} {what}"))
+        smem = max(p.smem_bytes for p in eng._level_plans.values())
+        print(f"tilted kernel ({name}, {len(eng._level_plans)} levels "
+              f"181x102 and smaller, smem up to {smem} B) and integral "
+              f"kernel ({eng.routes.count('tables')} levels 320x180 .. "
+              f"199x112), B={BATCH} faces + noise: == plain; alive windows "
+              f"{n_alive}")
+    nose = dets["NoseDetector"].part_engines["nose"]
+    plans = dict(nose._level_plans)
+    one = dense_level_cuda.DenseLevelPlan.make(
+        nose.levels[len(plans)], nose._tables, tilted=False)
+    plans[len(plans)] = one
+    n_alive = 0
+    for x in (work, noise):
+        for li, plan in plans.items():
+            l = nose.levels[li]
+            img = resize_linear_exact(x, (l.sw, l.sh))
+            got = dense_level_cuda.dense_level_strips(img, plan)
+            want = dense_level_cuda.dense_level_reference(img, plan)[2:]
+            for g, w, what in zip(got, want, ("vnf", "alive")):
+                err["dense_level_strips"] = max(
+                    err["dense_level_strips"],
+                    assert_equal(g, w, f"nose level {li} {what}"))
+            n_alive += int(got[1].sum())
     torch.cuda.synchronize()
-    err, n_alive = 0.0, 0
-    for li, ((gi, gv, ga), (wi, wv, wa)) in enumerate(zip(got, want)):
-        if (gi is None) != (wi is None) or (
-                gi is not None and not torch.equal(gi, wi)):
-            raise AssertionError(f"level {li}: level image differs")
-        err = max(err, float((gv - wv).abs().max()))
-        if not torch.equal(gv, wv):
-            raise AssertionError(f"level {li}: vnf differs (max {err})")
-        if not torch.equal(ga, wa):
-            n = int((ga != wa).sum())
-            raise AssertionError(f"level {li}: alive differs in {n} windows")
-        n_alive += int(ga.sum())
-    return err, n_alive
+    shapes = [(p.level.sw, p.level.sh, p.n_strips, p.smem_bytes)
+              for p in plans.values()]
+    print(f"strip kernel (nose levels (w, h, strips, smem B) {shapes}, the "
+          f"last with one strip), B={BATCH} faces + noise: == plain; alive "
+          f"windows {n_alive}")
+    return err
+
+
+def face_path(dev, frames_720) -> tuple[dict[str, int], object]:
+    clip = face_clip(4 * 16, *FRAME, seed=0)
+    batches = np.split(clip, 4)
+    fd = FaceDetector(FRAME, device=dev)
+    reset_counts()
+    gpu_faces = []
+    for b in batches:
+        gpu_faces += fd.process(b)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"face path: {len(batches)} batches of {len(batches[0])} frames, "
+          f"launches {counts}")
+    if counts["pyramid_dense_phase"] != len(batches):
+        raise AssertionError("expected one pyramid launch per batch")
+    n_tracked = sum(len(f) for f in gpu_faces)
+    ids = sorted({f.id for fs in gpu_faces for f in fs})
+    print(f"tracked faces: {n_tracked} over {len(gpu_faces)} frames, "
+          f"ids {ids}")
+    if n_tracked < 1:
+        raise AssertionError("no face tracked on the synthetic clip")
+    fd_cpu = FaceDetector(FRAME, device="cpu")
+    cpu_faces = []
+    for b in batches:
+        cpu_faces += fd_cpu.process(b)
+
+    def as_tuples(faces):
+        return [[(f.id, f.rect()) for f in fs] for fs in faces]
+
+    if as_tuples(gpu_faces) != as_tuples(cpu_faces):
+        raise AssertionError("CUDA tracked faces differ from the CPU run")
+    print("tracked faces: CUDA == CPU, frame by frame (ids and rects)")
+    work_cpu = work_images(frames_720, (160, 90), "cpu")
+    cand_gpu = fd.engine.candidates(work_cpu.to(dev))
+    cand_cpu = fd_cpu.engine.candidates(work_cpu)
+    n_cand = 0
+    for a, b in zip(cand_gpu, cand_cpu):
+        if not np.array_equal(np.sort(a, axis=0), np.sort(b, axis=0)):
+            raise AssertionError("CUDA raw candidates differ from the CPU")
+        n_cand += len(a)
+    if n_cand == 0:
+        raise AssertionError("no raw candidates on the synthetic frames")
+    print(f"raw candidates: CUDA == CPU on B={BATCH} ({n_cand} windows)")
+    return counts, fd.engine
+
+
+def predicted_launches(det) -> dict[str, int]:
+    """Launches per batch that the engines' level routes predict."""
+    engines = [det.face_engine, *det.part_engines.values()]
+    return {
+        "pyramid_dense_phase": sum(e._plan is not None for e in engines),
+        "dense_level_tilted": sum(e.routes.count("tilted") for e in engines),
+        "dense_level_strips": sum(e.routes.count("strips") for e in engines),
+        "integral_tables": sum(e.routes.count("tables") for e in engines),
+    }
+
+
+def part_path(dets, dev) -> dict[str, int]:
+    clip = face_clip(PART_BATCHES * PART_BATCH, *FRAME, seed=11)
+    batches = np.split(clip, PART_BATCHES)
+    total = dict.fromkeys(KERNELS, 0)
+    for name, det in dets.items():
+        reset_counts()
+        out = []
+        for b in batches:
+            out += det.process(b)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: v * PART_BATCHES
+                for k, v in predicted_launches(det).items()}
+        print(f"{name}: {PART_BATCHES} batches of {PART_BATCH} frames, "
+              f"launches {counts} (routes predict {want})")
+        if counts != want:
+            raise AssertionError(f"{name}: launches differ from the routes")
+        for k, v in counts.items():
+            total[k] += v
+        cpu = type(det)(FRAME, device="cpu")
+        cpu_out = []
+        for b in batches:
+            cpu_out += cpu.process(b)
+        if out != cpu_out:
+            raise AssertionError(f"{name}: CUDA outputs differ from CPU")
+        (fg, pg), (fc, pc) = (det._device_pass(batches[0]),
+                              cpu._device_pass(batches[0]))
+        for g, c in zip(fg, fc):
+            if not np.array_equal(g, c):
+                raise AssertionError(f"{name}: grouped faces differ")
+        summary = []
+        for part in pc:
+            for g, c in zip(pg[part], pc[part]):
+                if not np.array_equal(g, c):
+                    raise AssertionError(f"{name}: raw {part} differ")
+            boxes, valid, overflow = pg[part]
+            summary.append(f"{part}: {valid.sum(1).tolist()} candidates, "
+                           f"overflow {overflow.tolist()}")
+        print(f"{name}: outputs, grouped faces ({fg[1].sum(1).tolist()}) "
+              f"and raw candidates == CPU; {'; '.join(summary)}; first "
+              f"frame {out[0]}")
+        if name == "NoseDetector" and not sum(len(r["nose"]) for r in out):
+            raise AssertionError("no nose box on the synthetic clip")
+        if name == "MouthDetector" and not pg["mouth"][1].sum():
+            raise AssertionError("no mouth candidate on the synthetic clip")
+        for part, eng in det.part_engines.items():
+            if not eng._uses_tilt:
+                continue
+            work = work_images(batches[0], (320, 180), dev)
+            alive = sum(int(eng._dense_level(work, li)[4].sum())
+                        for li in range(len(eng.levels)))
+            print(f"{name} {part}: {alive} windows alive after the dense "
+                  "phase")
+            if alive == 0:
+                raise AssertionError(f"{name} {part}: dense phase vacuous")
+    return total
+
+
+def times(dev, gpu, face_eng, dets, frames_720) -> dict[str, dict]:
+    out: dict[str, dict] = {}
+    # pyramid kernel: the face path's 7 levels at 160x90
+    work = work_images(frames_720, (160, 90), dev)
+    plan = face_eng._plan
+    k, p, runs = in_turns(lambda: dense_cuda.pyramid_dense_phase(work, plan),
+                          lambda: dense_cuda.pyramid_dense_phase_reference(
+                              work, plan), 50, 10)
+    res = dense_cuda.pyramid_dense_phase(work, plan)
+    n_bytes = work.numel() + sum(
+        (img.numel() if img is not None else 0) + 5 * vnf.numel()
+        for img, vnf, _ in res)
+    # + per level pixel: the 2-tap resize (8) and the two tables (4)
+    n_ops = sum(dense_ops(plan.tables, vnf, alive) + 12.0 * BATCH * l.sh
+                * l.sw for l, (_, vnf, alive) in zip(plan.levels, res))
+    b_ms, b_by = bound(n_bytes, n_ops)
+    out["pyramid_dense_phase"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=None)
+    print(f"time: pyramid dense kernel {k:.4f} ms per B={BATCH} 720p face "
+          f"batch (160x90, 7 levels; runs {runs}); bound {b_ms:.4f} ms "
+          f"({b_by}) [{gpu}]")
+
+    # level kernels at the part chain's 320x180, per B=64 batch
+    part = work_images(frames_720, (320, 180), dev)
+    eye = dets["EyeDetector"].part_engines["right"]
+    levels = {li: resize_linear_exact(part, (eye.levels[li].sw,
+                                             eye.levels[li].sh))
+              for li in range(len(eye.levels))}
+    tplans = eye._level_plans
+
+    def tilted_kernel():
+        return [dense_level_cuda.dense_level_tilted(levels[li], pl)
+                for li, pl in tplans.items()]
+
+    k, p, runs = in_turns(tilted_kernel, lambda: [
+        dense_level_cuda.dense_level_reference(levels[li], pl)
+        for li, pl in tplans.items()], 20, 3)
+    res = tilted_kernel()
+    n_bytes = sum(levels[li].numel() + 8 * ii.numel() + 5 * vnf.numel()
+                  for li, (ii, _, vnf, _) in zip(tplans, res))
+    # + per table element: the sum, squared-sum and tilted tables (12)
+    n_ops = sum(dense_ops(eye._tables, vnf, alive) + 12.0 * ii.numel()
+                for ii, _, vnf, alive in res)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    out["dense_level_tilted"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None)
+    print(f"time: tilted level kernel {k:.4f} ms per B={BATCH} batch over "
+          f"the right eye's {len(tplans)} tilted levels (181x102 .. 22x20; "
+          f"runs {runs}); bound {b_ms:.4f} ms ({b_by}) [{gpu}]")
+
+    tables_lis = [li for li, r in enumerate(eye.routes) if r == "tables"]
+    k, p, runs = in_turns(
+        lambda: [integral_cuda.integral_tables(levels[li])
+                 for li in tables_lis],
+        lambda: [integral_cuda.integral_tables_reference(levels[li])
+                 for li in tables_lis], 50, 50)
+
+    def cumsum_pair():
+        for li in tables_lis:
+            x = levels[li].to(torch.int32)
+            torch.cumsum(torch.cumsum(x, -1, dtype=torch.int32), -2,
+                         dtype=torch.int32)
+            torch.cumsum(torch.cumsum(x * x, -1, dtype=torch.int32), -2,
+                         dtype=torch.int32)
+
+    lib_ms = cuda_ms(cumsum_pair, 50)
+    n_bytes = sum(levels[li].numel() * (1 + 8) + 8 * BATCH * (
+        levels[li].shape[1] + levels[li].shape[2] + 1) for li in tables_lis)
+    n_ops = sum(6.0 * levels[li].numel() for li in tables_lis)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    out["integral_tables"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms)
+    print(f"time: integral kernel {k:.4f} ms per B={BATCH} batch over the "
+          f"6 large tilted levels (320x180 .. 199x112; runs {runs}); "
+          f"torch.cumsum pair {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}) [{gpu}]")
+
+    nose = dets["NoseDetector"].part_engines["nose"]
+    splans = nose._level_plans
+    nlevels = {li: resize_linear_exact(part, (nose.levels[li].sw,
+                                              nose.levels[li].sh))
+               for li in splans}
+
+    def strip_kernel():
+        return [dense_level_cuda.dense_level_strips(nlevels[li], pl)
+                for li, pl in splans.items()]
+
+    k, p, runs = in_turns(strip_kernel, lambda: [
+        dense_level_cuda.dense_level_reference(nlevels[li], pl)
+        for li, pl in splans.items()], 50, 10)
+    res = strip_kernel()
+    n_bytes = sum(nlevels[li].numel() + 5 * vnf.numel()
+                  for li, (vnf, _) in zip(splans, res))
+    # + per level pixel: the two strip tables (4)
+    n_ops = sum(dense_ops(nose._tables, vnf, alive) + 4.0 * nlevels[li].numel()
+                for li, (vnf, alive) in zip(splans, res))
+    b_ms, b_by = bound(n_bytes, n_ops)
+    out["dense_level_strips"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None)
+    print(f"time: strip level kernel {k:.4f} ms per B={BATCH} batch over the "
+          f"nose's 4 strip levels (320x180 .. 240x135; runs {runs}); bound "
+          f"{b_ms:.4f} ms ({b_by}) [{gpu}]")
+
+    gray = torch.from_numpy(frames_720).to(dev)
+    dev_ms = cuda_ms(lambda: face_eng.detect_grouped(equalize_hist(
+        resize_linear_exact(gray, (160, 90)))), 20)
+    print(f"time: face device path (resize, equalize, cascade, grouping on "
+          f"device-resident frames) {dev_ms:.4f} ms/batch, "
+          f"{BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} 720p [{gpu}]")
+    for det in (FaceDetector(FRAME, device=dev), *dets.values()):
+        det.process(frames_720)
+        torch.cuda.synchronize()
+        n_rep = 3
+        t0 = time.perf_counter()
+        for _ in range(n_rep):
+            det.process(frames_720)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"time: {type(det).__name__}.process "
+              f"{n_rep * BATCH / secs:.1f} frames/s ({secs * 1000.0 / n_rep:.3f}"
+              f" ms per {BATCH}-frame 720p host batch) [{gpu}]")
+    return out
 
 
 def main() -> int:
@@ -119,119 +548,32 @@ def main() -> int:
           f"{torch.cuda.device_count()} name {torch.cuda.get_device_name(0)}")
 
     phase("2 build")
-    path, log, seconds = _build.build_library("pyramid_dense")
-    print(f"build: {path.name} in {seconds:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all()
 
-    phase("3 kernel vs plain version")
-    rng_frames = {}
-    max_err = 0.0
-    for size in (FRAME, (640, 480)):
-        eng = get_engine(DEFAULT_FACE_CASCADE,
-                         (160, round(size[1] * 160 / size[0])), 1.25,
-                         device=dev)
-        frames = face_clip(BATCH, *size, seed=11)
-        rng_frames[size] = frames
-        work = work_images(frames, eng, dev)
-        err, n_alive = compare_kernel(work, eng._plan)
-        max_err = max(max_err, err)
-        noise = torch.from_numpy(np.random.RandomState(5).randint(
-            0, 256, work.shape, np.uint8)).to(dev)
-        err2, n_alive2 = compare_kernel(noise, eng._plan)
-        max_err = max(max_err, err2)
-        print(f"{size[0]}x{size[1]} -> work {eng.image_w}x{eng.image_h}, "
-              f"{len(eng.levels)} levels, B={BATCH}: kernel == plain "
-              f"(level images, vnf, alive); alive windows {n_alive} "
-              f"(faces) {n_alive2} (noise); smem {eng._plan.smem_bytes} B")
+    phase("3 kernels vs plain versions")
+    frames = {size: face_clip(BATCH, *size, seed=11)
+              for size in (FRAME, (640, 480))}
+    err = {"pyramid_dense_phase": check_pyramid(dev, frames)}
+    dets = part_engines(dev)
+    err.update(check_level_kernels(dev, dets, frames[FRAME]))
 
-    phase("4 main path")
-    clip = face_clip(4 * 16, *FRAME, seed=0)
-    batches = np.split(clip, 4)
-    fd = FaceDetector(FRAME, device=dev)
-    dense_cuda.pyramid_dense_phase.launches = 0
-    gpu_faces = []
-    for b in batches:
-        gpu_faces += fd.process(b)
-    torch.cuda.synchronize()
-    launches = dense_cuda.pyramid_dense_phase.launches
-    print(f"process: {len(batches)} batches of {len(batches[0])} frames, "
-          f"kernel launches {launches}")
-    if launches != len(batches):
-        raise AssertionError(
-            f"expected one kernel launch per batch, got {launches}")
-    n_tracked = sum(len(f) for f in gpu_faces)
-    ids = sorted({f.id for fs in gpu_faces for f in fs})
-    print(f"tracked faces: {n_tracked} over {len(gpu_faces)} frames, ids {ids}")
-    if n_tracked < 1:
-        raise AssertionError("no face tracked on the synthetic clip")
-    fd_cpu = FaceDetector(FRAME, device="cpu")
-    cpu_faces = []
-    for b in batches:
-        cpu_faces += fd_cpu.process(b)
+    phase("4 face path")
+    launches, face_eng = face_path(dev, frames[FRAME])
 
-    def as_tuples(faces):
-        return [[(f.id, f.rect()) for f in fs] for fs in faces]
+    phase("5 part path")
+    for k, v in part_path(dets, dev).items():
+        launches[k] += v
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a path: {missing}")
 
-    if as_tuples(gpu_faces) != as_tuples(cpu_faces):
-        raise AssertionError("CUDA tracked faces differ from the CPU run")
-    print("tracked faces: CUDA == CPU, frame by frame (ids and rects)")
-    eng_gpu = fd.engine
-    eng_cpu = fd_cpu.engine
-    work_cpu = work_images(rng_frames[FRAME], eng_cpu, "cpu")
-    cand_gpu = eng_gpu.candidates(work_cpu.to(dev))
-    cand_cpu = eng_cpu.candidates(work_cpu)
-    n_cand = 0
-    for a, b in zip(cand_gpu, cand_cpu):
-        if not np.array_equal(np.sort(a, axis=0), np.sort(b, axis=0)):
-            raise AssertionError("CUDA raw candidates differ from the CPU")
-        n_cand += len(a)
-    if n_cand == 0:
-        raise AssertionError("no raw candidates on the synthetic frames")
-    print(f"raw candidates: CUDA == CPU on B={BATCH} ({n_cand} windows)")
+    phase("6 times")
+    t = times(dev, gpu, face_eng, dets, frames[FRAME])
 
-    phase("5 times")
-    work = work_images(rng_frames[FRAME], eng_gpu, dev)
-    plan = eng_gpu._plan
-    kernel_ms, plain_ms = [], []
-    for which in ("plain", "kernel", "kernel", "plain"):
-        if which == "kernel":
-            kernel_ms.append(cuda_ms(
-                lambda: dense_cuda.pyramid_dense_phase(work, plan), 50))
-        else:
-            plain_ms.append(cuda_ms(
-                lambda: dense_cuda.pyramid_dense_phase_reference(work, plan),
-                10))
-    k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
-    print(f"time: pyramid dense kernel {k_ms:.4f} ms/batch "
-          f"(runs {['%.4f' % v for v in kernel_ms]}), plain version "
-          f"{p_ms:.4f} ms/batch (runs {['%.4f' % v for v in plain_ms]}); "
-          f"B={BATCH} 720p work 160x90 [{gpu}]")
-    gray = torch.from_numpy(rng_frames[FRAME]).to(dev)
-    dev_ms = cuda_ms(lambda: eng_gpu.detect_grouped(equalize_hist(
-        resize_linear_exact(gray, (eng_gpu.image_w, eng_gpu.image_h)))), 20)
-    print(f"time: device path (resize, equalize, cascade, grouping on "
-          f"device-resident frames) {dev_ms:.4f} ms/batch, "
-          f"{BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} 720p [{gpu}]")
-    fd_t = FaceDetector(FRAME, device=dev)
-    fd_t.process(rng_frames[FRAME])
-    torch.cuda.synchronize()
-    n_rep = 10
-    t0 = time.perf_counter()
-    for _ in range(n_rep):
-        fd_t.process(rng_frames[FRAME])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    print(f"time: FaceDetector.process {n_rep * BATCH / secs:.1f} frames/s "
-          f"({secs * 1000.0 / n_rep:.3f} ms per {BATCH}-frame 720p host "
-          f"batch, host frames in, tracked faces out) [{gpu}]")
-
-    print(json.dumps({"kernels": [{
-        "name": "pyramid_dense_phase", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": err[name], **t[name]}
+        for name, (_, src, rep) in KERNELS.items()]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,19 +4,34 @@
 
 Per batch of work images:
 
-* **Dense phase** (``ops/cuda/dense_cuda.pyramid_dense_phase``): for every
-  pyramid level, the level image, integral tables, variance normalization
-  and the first few stages on the level's ystep-strided window grid. On a
-  CUDA device this is one hand-written kernel launch for all levels; on the
-  CPU its plain PyTorch version.
+* **Dense phase**: for every pyramid level, the level image, integral
+  tables, variance normalization and the first few stages (the dense
+  block) on the level's ystep-strided window grid. Each level takes one of
+  four routes, chosen from its geometry alone (``_route``), so the CPU runs
+  the same control flow as the card, each kernel through its plain
+  PyTorch version:
+
+  - ``pyramid``: non-tilted levels whose two tables fit one block's shared
+    memory, all in one launch of ``ops/cuda/dense_cuda.pyramid_dense_phase``
+    (which also makes the level images);
+  - ``strips``: larger non-tilted levels, resized here, then
+    ``dense_level_cuda.dense_level_strips``;
+  - ``tilted``: levels of tilted cascades whose three tables fit, resized
+    here, then ``dense_level_cuda.dense_level_tilted``, which also emits
+    the sum and tilted tables;
+  - ``tables``: larger tilted levels: ``integral_cuda.integral_tables``,
+    then the plain-torch tilted table and dense phase (the JAX engine's
+    XLA path, ``cascade/engine.py:537-585``).
 * **Compaction**: surviving windows are compacted to a static per-level
   capacity with ``torch.topk`` (earliest index first); a per-frame overflow
   flag reports survivors beyond capacity.
-* **Matmul blocks**: for survivors the window's pixels are gathered from
-  the level image and turned into the patch-local integral table; each
-  block's feature values are one patch x feature-matrix float32 matmul,
-  weak trees are selects and stage sums a second small matmul. Between
-  blocks the survivor set is re-compacted.
+* **Matmul blocks**: for survivors the window's patch of the sum table (and
+  of the tilted table) is gathered — from the level image, rebuilt as the
+  patch-local integral, where no table left the dense phase — and each
+  block's feature values are one patch x feature-matrix matmul, weak trees
+  are selects and stage sums a second small matmul. Between blocks the
+  survivor set is re-compacted. A cascade with no stage past the dense
+  block emits the dense survivors directly.
 * **Grouping** (``group_device``): exact minNeighbors grouping on the
   device, only [B, 64] grouped boxes leave it.
 
@@ -25,13 +40,16 @@ sums, resize), and the same float32 operations elsewhere. The float32
 matmuls must not round through TF32, so the engine refuses to run when
 ``torch.backends.cuda.matmul.allow_tf32`` is set or the float32 matmul
 precision is not "highest" (both are PyTorch's defaults); it changes no
-global setting itself.
+global setting itself. A feature matmul whose partial sums can reach 2^24
+(tilted patches, which hold absolute table differences, and windows as
+large as the smile's 36x18) runs in float64, where every partial sum is an
+exact integer, and is rounded once to float32, so its result does not
+depend on the summation order of the device's BLAS.
 
 The TPU compile machinery of the JAX engine (per-level programs, program
 grouping, warm-up, recovery tiers) has no counterpart: PyTorch runs
-eagerly. Tilted cascades raise NotImplementedError, as do, on CUDA, levels
-too large for the kernel's shared memory; both need TPU kernels still to
-port, and no such case runs silently on another path.
+eagerly. Engines run on the card unless the caller asks for another
+device; a level that no route takes raises, and nothing falls back.
 """
 
 from __future__ import annotations
@@ -44,8 +62,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cuda.dense_cuda import PyramidDensePlan, pyramid_dense_phase
+from ..ops.cuda.dense_cuda import (MAX_SMEM_BYTES, DenseTables,
+                                   PyramidDensePlan, pyramid_dense_phase,
+                                   pyramid_smem_bytes)
+from ..ops.cuda.dense_level_cuda import (DenseLevelPlan, dense_level_strips,
+                                         dense_level_tilted, strip_plan,
+                                         tilted_smem_bytes)
+from ..ops.cuda.integral_cuda import integral_tables
 from ..ops.grouping import group_rectangles_torch
+from ..ops.integral import tilted_integral_image
+from ..ops.resize import resize_linear_exact
 from .pyramid import LevelSpec, compute_levels
 from .xml_loader import HaarCascade
 
@@ -55,12 +81,20 @@ def _sum_corner_offsets(x, y, w, h):
     return [(y, x, 1), (y, x + w, -1), (y + h, x, -1), (y + h, x + w, 1)]
 
 
+def _tilt_corner_offsets(x, y, w, h):
+    """Tilted rect → 4 (dy, dx, sign) corners on the tilted table:
+    sum = T[y,x] - T[y+w,x+w] - T[y+h,x-h] + T[y+w+h,x+w-h]."""
+    return [(y, x, 1), (y + w, x + w, -1), (y + h, x - h, -1),
+            (y + w + h, x + w - h, 1)]
+
+
 @dataclasses.dataclass
 class _Block:
     """Host-precomputed tables for one matmul block of stages."""
 
     w_sum: np.ndarray          # [PP, Fb] f32
-    feat0: np.ndarray         # [Wb] i32 (block-local feature ids)
+    w_tilt: np.ndarray | None  # [PP, Fb] f32
+    feat0: np.ndarray          # [Wb] i32 (block-local feature ids)
     thr0: np.ndarray
     featL: np.ndarray
     thrL: np.ndarray
@@ -72,15 +106,22 @@ class _Block:
     stage_thr: np.ndarray      # [Sb] f32
     cap_frac: float            # capacity fraction of level windows
 
-    def to(self, device: torch.device) -> dict[str, torch.Tensor]:
-        """The evaluation tables as tensors on `device`."""
-        out = {}
+    def to(self, device: torch.device,
+           patch_dtype: torch.dtype) -> dict[str, torch.Tensor | None]:
+        """The evaluation tables as tensors on `device`, the feature
+        matrices in the engine's patch dtype."""
+        out: dict[str, torch.Tensor | None] = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, np.ndarray):
                 t = torch.from_numpy(v)
-                out[f.name] = (t.long() if v.dtype.kind == "i" else t).to(
-                    device)
+                if v.dtype.kind == "i":
+                    t = t.long()
+                elif f.name.startswith("w_"):
+                    t = t.to(patch_dtype)
+                out[f.name] = t.to(device)
+            elif f.name == "w_tilt":
+                out[f.name] = None
         return out
 
 
@@ -129,6 +170,7 @@ class CascadeEngine:
     # the level's windows); None = every remaining stage. For frontalface_alt:
     # dense 3 stages → (5 stages, 45%) → (14 stages, 8%)
     BLOCK_PLAN = ((5, 0.45), (None, 0.08))
+    F32_EXACT = 2 ** 24   # integers float32 holds exactly
 
     def __init__(
         self,
@@ -137,15 +179,10 @@ class CascadeEngine:
         scale_factor: float = 1.25,
         min_size: tuple[int, int] = (0, 0),
         max_size: tuple[int, int] = (0, 0),
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         _check_true_f32_matmul()
         self.device = _resolve_device(device)
-        if cascade.has_tilted:
-            raise NotImplementedError(
-                "tilted cascades need the tilted dense kernel, still to "
-                "port from nubomedia_vca_tpu/ops/pallas/dense_pallas.py:"
-                "build_dense_phase")
         self.cascade = cascade
         self.image_w, self.image_h = image_size
         self.scale_factor = scale_factor
@@ -157,23 +194,30 @@ class CascadeEngine:
             raise ValueError("image smaller than cascade window")
 
         cum = np.cumsum(cascade.stage_weak_counts())
-        self.n_dense_stages = max(1, int(np.searchsorted(
-            cum, self.DENSE_MAX_WEAK, side="right")))
-        if self.n_dense_stages >= cascade.n_stages:
-            raise ValueError(
-                f"cascade {cascade.name!r} has no stages beyond the dense "
-                f"block ({cascade.n_stages} stages, {int(cum[-1])} weak "
-                "trees)")
+        self.n_dense_stages = min(cascade.n_stages, max(1, int(
+            np.searchsorted(cum, self.DENSE_MAX_WEAK, side="right"))))
         self._build_tables()
 
-        self._plan = PyramidDensePlan(
+        self._tables = DenseTables(
+            (cascade.window_w, cascade.window_h), self._feat_rects,
+            self._dense, self.n_dense_stages)
+        self.routes = [self._route(l) for l in self.levels]
+        self._pyramid_lis = [li for li, r in enumerate(self.routes)
+                             if r == "pyramid"]
+        self._plan = (PyramidDensePlan(
             (self.image_w, self.image_h),
-            (cascade.window_w, cascade.window_h), self.levels,
-            self._feat_rects, self._dense, self.n_dense_stages)
-        if self.device.type == "cuda":
-            self._plan.check_fits()
+            [self.levels[li] for li in self._pyramid_lis], self._tables)
+            if self._pyramid_lis else None)
+        self._level_plans = {
+            li: DenseLevelPlan.make(self.levels[li], self._tables,
+                                    tilted=(r == "tilted"))
+            for li, r in enumerate(self.routes) if r in ("strips", "tilted")}
+
         dev = self.device
-        self._blocks_dev = [blk.to(dev) for blk in self._blocks]
+        self._patch_dtype = (torch.float64 if self._needs_f64()
+                             else torch.float32)
+        self._blocks_dev = [blk.to(dev, self._patch_dtype)
+                            for blk in self._blocks]
         self._maps_dev = [(torch.from_numpy(mx).long().to(dev),
                            torch.from_numpy(my).long().to(dev))
                           for mx, my in self._maps]
@@ -181,14 +225,46 @@ class CascadeEngine:
             torch.from_numpy(self._img_patch_dy * l.sw
                              + self._img_patch_dx).long().to(dev)
             for l in self.levels]
+        self._tab_poff_dev = [
+            torch.from_numpy(self._patch_dy * (l.sw + 1)
+                             + self._patch_dx).long().to(dev)
+            for l in self.levels]
 
     # ------------------------------------------------------------------ prep
+    def _route(self, l: LevelSpec) -> str:
+        """The dense-phase route of level `l`, from its geometry alone (see
+        the module docstring)."""
+        if self._uses_tilt:
+            if tilted_smem_bytes(l) <= MAX_SMEM_BYTES:
+                return "tilted"
+            return "tables"
+        if pyramid_smem_bytes(l) <= MAX_SMEM_BYTES:
+            return "pyramid"
+        if strip_plan(l, self.cascade.window_h) is not None:
+            return "strips"
+        raise NotImplementedError(
+            f"level {l.sw}x{l.sh}: no dense kernel takes it (the pyramid "
+            "kernel needs both tables in shared memory, the row-strip kernel "
+            f"a strip of {self.cascade.window_h} rows; "
+            f"{MAX_SMEM_BYTES} B available)")
+
+    def _needs_f64(self) -> bool:
+        """Whether a feature matmul's partial sums can reach 2^24: always
+        with tilted features (their patches hold absolute table
+        differences), else when sum(|weight| * largest patch entry) of a
+        feature does (patch entry (dy, dx) is at most 255*dy*dx)."""
+        most = (255 * self._patch_dy * self._patch_dx).astype(np.float64)
+        return any(
+            blk.w_tilt is not None
+            or float((np.abs(blk.w_sum) * most[:, None]).sum(0).max())
+            >= self.F32_EXACT
+            for blk in self._blocks)
+
     def _build_tables(self) -> None:
         c = self.cascade
         self._pw, self._ph = c.window_w + 1, c.window_h + 1
 
-        # per-feature corner decomposition (sum table only: the engine
-        # refuses tilted cascades)
+        # per-feature corner decomposition
         self._feat_rects = []
         for f in range(c.n_features):
             rects = []
@@ -197,8 +273,11 @@ class CascadeEngine:
                 if wgt == 0.0:
                     continue
                 x, y, w, h = (int(v) for v in c.rects[f, r])
-                rects.append(("sum", _sum_corner_offsets(x, y, w, h), wgt))
+                corners = (_tilt_corner_offsets(x, y, w, h) if c.tilted[f]
+                           else _sum_corner_offsets(x, y, w, h))
+                rects.append(("tilt" if c.tilted[f] else "sum", corners, wgt))
             self._feat_rects.append(rects)
+        self._uses_tilt = bool(c.has_tilted)
 
         counts = c.stage_weak_counts()
         cum = np.concatenate([[0], np.cumsum(counts)])
@@ -237,7 +316,9 @@ class CascadeEngine:
                 caps.append(cap)
                 prev = cap
             self._level_caps.append(caps)
-        self.total_capacity = sum(caps[-1] for caps in self._level_caps)
+        self.total_capacity = sum(
+            caps[-1] if caps else l.n_windows
+            for caps, l in zip(self._level_caps, self.levels))
 
         # original-pixel coordinate maps
         self._maps = []
@@ -249,10 +330,15 @@ class CascadeEngine:
                 np.rint(ys * l.factor).astype(np.int32),
             ))
 
-        # survivor patches are gathered from the LEVEL IMAGE (uint8, w0×h0):
-        # the patch-local integral of the window's pixels equals the
-        # doubly-relative integral-table patch entry for entry, so no
-        # integral table has to leave the dense phase
+        # survivor patches of the (h0+1)x(w0+1) table entries of a window
+        dy, dx = np.meshgrid(np.arange(self._ph), np.arange(self._pw),
+                             indexing="ij")
+        self._patch_dy = dy.reshape(-1)
+        self._patch_dx = dx.reshape(-1)
+        # where no table left the dense phase, survivor patches are gathered
+        # from the LEVEL IMAGE (uint8, w0×h0): the patch-local integral of
+        # the window's pixels equals the doubly-relative sum-table patch
+        # entry for entry
         dyi, dxi = np.meshgrid(np.arange(self._ph - 1),
                                np.arange(self._pw - 1), indexing="ij")
         self._img_patch_dy = dyi.reshape(-1)
@@ -267,18 +353,22 @@ class CascadeEngine:
         remap = {f: i for i, f in enumerate(used)}
         PP = self._pw * self._ph
         w_sum = np.zeros((PP, len(used)), np.float32)
+        w_tilt = np.zeros((PP, len(used)), np.float32) if c.has_tilted else None
         for f in used:
             i = remap[f]
-            for _, corners, wgt in self._feat_rects[f]:
+            for table, corners, wgt in self._feat_rects[f]:
+                tgt = w_sum if table == "sum" else w_tilt
                 for (dy, dx, s) in corners:
                     assert 0 <= dy < self._ph and 0 <= dx < self._pw
-                    w_sum[dy * self._pw + dx, i] += s * wgt
+                    tgt[dy * self._pw + dx, i] += s * wgt
+        if w_tilt is not None and not w_tilt.any():
+            w_tilt = None
         onehot = np.zeros((w_hi - w_lo, s_hi - s_lo), np.float32)
         for i, s in enumerate(c.weak_stage[w_lo:w_hi]):
             onehot[i, int(s) - s_lo] = 1.0
         rm = np.vectorize(lambda f: remap[int(f)], otypes=[np.int32])
         return _Block(
-            w_sum=w_sum,
+            w_sum=w_sum, w_tilt=w_tilt,
             feat0=rm(c.feat0[w_lo:w_hi]), thr0=c.thr0[w_lo:w_hi],
             featL=rm(c.featL[w_lo:w_hi]), thrL=c.thrL[w_lo:w_hi],
             leavesL=c.leavesL[w_lo:w_hi],
@@ -309,13 +399,17 @@ class CascadeEngine:
         return sel, sel_alive, count
 
     @staticmethod
-    def _block_eval(blk: dict, patch, vnf_sel):
-        """patch [B,C,PP] f32 (patch-local integral), vnf_sel [B,C] →
-        pass [B,C]. The feature matmul is exact integer arithmetic in
-        float32 (every partial sum < 2^24), so its summation order does not
-        matter; TF32 would round the patch values."""
+    def _block_eval(blk: dict, patch, patch_t, vnf_sel):
+        """patch, patch_t [B,C,PP] (sum-table and tilted-table patches, in
+        the engine's patch dtype), vnf_sel [B,C] → pass [B,C]. The feature
+        matmuls are exact integer arithmetic (float32 where every partial
+        sum stays below 2^24, else float64), so their summation order does
+        not matter; the features are rounded once to float32. TF32 would
+        round the patch values."""
         feats = torch.matmul(patch, blk["w_sum"])
-        vals = feats * vnf_sel[:, :, None]
+        if blk["w_tilt"] is not None:
+            feats = feats + torch.matmul(patch_t, blk["w_tilt"])
+        vals = feats.to(torch.float32) * vnf_sel[:, :, None]
         v0 = vals[..., blk["feat0"]]
         vL = vals[..., blk["featL"]]
         vR = vals[..., blk["featR"]]
@@ -327,10 +421,12 @@ class CascadeEngine:
         ssums = torch.matmul(wout, blk["stage_onehot"])
         return (ssums >= blk["stage_thr"]).all(dim=-1)
 
-    def _level_post(self, li, img, vnf, alive):
+    def _level_post(self, li, img, ii, iit, vnf, alive):
         """Strided dense-grid maps of level `li` → (boxes [B,cap,4] i32,
-        valid [B,cap], overflow [B]): compaction, survivor patch gather
-        from the level image `img` [B,sh,sw] u8, matmul blocks."""
+        valid [B,cap], overflow [B]): compaction, survivor patch gather,
+        matmul blocks. Patches come from the sum and tilted tables `ii`,
+        `iit` [B,sh+1,sw+1] when the dense phase emitted them, else from
+        the level image `img` [B,sh,sw] u8."""
         l, caps = self.levels[li], self._level_caps[li]
         map_x, map_y = self._maps_dev[li]
         B = alive.shape[0]
@@ -340,34 +436,56 @@ class CascadeEngine:
         alive_flat = alive.reshape(B, nwin)
         vnf_flat = vnf.reshape(B, nwin)
 
-        # first compaction + one-time patch gather
-        cap0 = caps[0]
-        sel, sel_alive, count = self._compact(alive_flat, cap0)
-        overflow |= count > cap0
-        win_ids = sel
-        y, x = (sel // nx) * step, (sel % nx) * step
-        k0 = sel.shape[1]
-        idx = (y * l.sw + x)[:, :, None] + self._img_poff_dev[li]
-        pimg = img.reshape(B, -1).gather(1, idx.reshape(B, -1)).reshape(
-            B, k0, self._ph - 1, self._pw - 1)
-        local = torch.cumsum(
-            torch.cumsum(pimg.to(torch.int32), dim=-1, dtype=torch.int32),
-            dim=-2, dtype=torch.int32)
-        patch = F.pad(local, (1, 0, 1, 0)).reshape(B, k0, -1).to(
-            torch.float32)
-        vnf_sel = vnf_flat.gather(1, sel)
+        if not self._blocks:
+            # no stage past the dense block: emit the dense survivors
+            cap = min(nwin, self.MAX_CAPACITY)
+            sel, sel_alive, count = self._compact(alive_flat, cap)
+            overflow |= count > cap
+            win_ids = sel
+        else:
+            # first compaction + one-time patch gather
+            cap0 = caps[0]
+            sel, sel_alive, count = self._compact(alive_flat, cap0)
+            overflow |= count > cap0
+            win_ids = sel
+            y, x = (sel // nx) * step, (sel % nx) * step
+            k0 = sel.shape[1]
+            if ii is None:
+                idx = (y * l.sw + x)[:, :, None] + self._img_poff_dev[li]
+                pimg = img.reshape(B, -1).gather(1, idx.reshape(B, -1)).reshape(
+                    B, k0, self._ph - 1, self._pw - 1)
+                local = torch.cumsum(
+                    torch.cumsum(pimg.to(torch.int32), dim=-1,
+                                 dtype=torch.int32),
+                    dim=-2, dtype=torch.int32)
+                patch = F.pad(local, (1, 0, 1, 0))
+            else:
+                idx = ((y * (l.sw + 1) + x)[:, :, None]
+                       + self._tab_poff_dev[li]).reshape(B, -1)
+                patch = ii.reshape(B, -1).gather(1, idx).reshape(
+                    B, k0, self._ph, self._pw)
+                patch = (patch - patch[:, :, :1, :] - patch[:, :, :, :1]
+                         + patch[:, :, :1, :1])
+            patch = patch.reshape(B, k0, -1).to(self._patch_dtype)
+            patch_t = None
+            if self._uses_tilt:
+                patch_t = iit.reshape(B, -1).gather(1, idx).reshape(B, k0, -1)
+                patch_t = (patch_t - patch_t[:, :, :1]).to(self._patch_dtype)
+            vnf_sel = vnf_flat.gather(1, sel)
 
-        for bi, blk in enumerate(self._blocks_dev):
-            if bi > 0 and caps[bi] < sel_alive.shape[1]:
-                # re-compact among current survivors
-                sel2, sel_alive, count = self._compact(sel_alive, caps[bi])
-                overflow |= count > caps[bi]
-                win_ids = win_ids.gather(1, sel2)
-                patch = patch.gather(
-                    1, sel2[:, :, None].expand(-1, -1, patch.shape[2]))
-                vnf_sel = vnf_sel.gather(1, sel2)
-            passed = self._block_eval(blk, patch, vnf_sel)
-            sel_alive = sel_alive & passed
+            for bi, blk in enumerate(self._blocks_dev):
+                if bi > 0 and caps[bi] < sel_alive.shape[1]:
+                    # re-compact among current survivors
+                    sel2, sel_alive, count = self._compact(sel_alive, caps[bi])
+                    overflow |= count > caps[bi]
+                    win_ids = win_ids.gather(1, sel2)
+                    rows = sel2[:, :, None].expand(-1, -1, patch.shape[2])
+                    patch = patch.gather(1, rows)
+                    if patch_t is not None:
+                        patch_t = patch_t.gather(1, rows)
+                    vnf_sel = vnf_sel.gather(1, sel2)
+                passed = self._block_eval(blk, patch, patch_t, vnf_sel)
+                sel_alive = sel_alive & passed
 
         bx = map_x[win_ids % nx]
         by = map_y[win_ids // nx]
@@ -376,16 +494,40 @@ class CascadeEngine:
             dim=-1).to(torch.int32)
         return boxes, sel_alive, overflow
 
+    def _dense_level(self, gray: torch.Tensor, li: int):
+        """Level `li` outside the pyramid kernel → (img, ii, iit, vnf,
+        alive) by its route."""
+        l = self.levels[li]
+        same = (l.sw, l.sh) == (self.image_w, self.image_h)
+        img = gray if same else resize_linear_exact(gray, (l.sw, l.sh))
+        route = self.routes[li]
+        if route == "strips":
+            vnf, alive = dense_level_strips(img, self._level_plans[li])
+            return img, None, None, vnf, alive
+        if route == "tilted":
+            return (img, *dense_level_tilted(img, self._level_plans[li]))
+        ii, sq = integral_tables(img)
+        iit = tilted_integral_image(img)
+        vnf, alive = self._tables.evaluate(ii, sq, iit, l.ny, l.nx, l.ystep)
+        return img, ii, iit, vnf, alive
+
     def _detect_impl(self, gray: torch.Tensor):
         """gray [B, H, W] uint8 → (boxes [B, TC, 4] i32, valid [B, TC] bool,
         overflow [B] bool)."""
+        dense: dict[int, tuple] = {}
+        if self._plan is not None:
+            for li, (img_l, vnf, alive) in zip(
+                    self._pyramid_lis, pyramid_dense_phase(gray, self._plan)):
+                dense[li] = (gray if img_l is None else img_l, None, None,
+                             vnf, alive)
         out_boxes, out_valid = [], []
         overflow = torch.zeros((gray.shape[0],), dtype=torch.bool,
                                device=gray.device)
-        levels = pyramid_dense_phase(gray, self._plan)
-        for li, (img_l, vnf, alive) in enumerate(levels):
-            boxes, valid, ovf = self._level_post(
-                li, gray if img_l is None else img_l, vnf, alive.bool())
+        for li in range(len(self.levels)):
+            img, ii, iit, vnf, alive = (dense.pop(li, None)
+                                        or self._dense_level(gray, li))
+            boxes, valid, ovf = self._level_post(li, img, ii, iit, vnf,
+                                                 alive.bool())
             out_boxes.append(boxes)
             out_valid.append(valid)
             overflow |= ovf
@@ -485,7 +627,7 @@ def get_engine(cascade_path: str, image_size: tuple[int, int],
                scale_factor: float = 1.25,
                min_size: tuple[int, int] = (0, 0),
                max_size: tuple[int, int] = (0, 0),
-               device: str | torch.device = "cpu") -> CascadeEngine:
+               device: str | torch.device = "cuda") -> CascadeEngine:
     """Process-wide engine cache, one engine per configuration and device.
     Engines are stateless after construction; models share them."""
     dev = _resolve_device(device)

@@ -11,21 +11,10 @@
 //      except for the unscaled level, whose image is the work image;
 //   2. builds the sum and squared-sum integral tables in shared memory, in
 //      uint32 (wraparound) arithmetic; no table leaves the block;
-//   3. per window of the level's ystep-strided grid: variance normalization
-//      nf = area*sqsum - sum^2, valid iff nf > 100*area^2,
-//      vnf = 1/sqrt(max(nf, 1e-20)) (else 1.0);
-//   4. evaluates the first n_dense stages in exactly the float32 operation
-//      order of the engine's XLA dense phase: per rect float(sum) * weight,
-//      summed in rect order; times vnf; "<" threshold selects; stage sums in
-//      weak-tree order; alive &= ssum >= stage threshold;
-//   5. writes vnf [B,ny,nx] f32 and alive [B,ny,nx] u8.
-//
-// Exactness: every multiply and add is spelled __fmul_rn/__fadd_rn (and the
-// library is built with -fmad=false), so nothing is contracted into an FMA;
-// the square root and reciprocal are the IEEE round-to-nearest ones, never
-// rsqrtf. A window that fails a stage stops there: later stages cannot
-// revive it, so alive is unchanged. Only the child a weak tree selects is
-// evaluated; the reference evaluates both and then selects, same result.
+//   3. per window of the level's ystep-strided grid, the variance
+//      normalization and the first n_dense stages (dense_eval.cuh, which
+//      also states the exactness rules);
+//   4. writes vnf [B,ny,nx] f32 and alive [B,ny,nx] u8.
 //
 // What bounds it: a 720p frame brings a 160x90 work image (14.4 KB) in and
 // a few KB of maps out, so device-memory traffic is negligible. The work is
@@ -40,52 +29,20 @@
 
 #include <cstdint>
 
+#include "dense_eval.cuh"
+
 namespace {
 
 // Per-level int32 record; must match LEVEL_FIELDS in ops/cuda/dense_cuda.py.
 constexpr int kSw = 0, kSh = 1, kStep = 2, kNx = 3, kNy = 4, kSame = 5,
               kImgBase = 6, kMapBase = 7, kRxOff = 8, kRyOff = 9,
               kLevelFields = 10;
-// Per-feature record: n_rects, then (x, y, w, h) of up to kMaxRects rects.
-constexpr int kMaxRects = 3, kFeatFields = 1 + 4 * kMaxRects;
-// Per weak tree: int (feat0, featL, featR, stage);
-// float (thr0, thrL, thrR, leafL0, leafL1, leafR0, leafR1).
-constexpr int kWeakI = 4, kWeakF = 7;
 constexpr int kThreads = 256;
-
-// Signed 4-corner rect sum on a table whose origin is the window's corner.
-__device__ __forceinline__ uint32_t rect_sum(const uint32_t* t, int w1, int x,
-                                             int y, int w, int h) {
-  const uint32_t* r0 = t + y * w1 + x;
-  const uint32_t* r1 = r0 + h * w1;
-  return r0[0] - r0[w] - r1[0] + r1[w];
-}
-
-__device__ __forceinline__ float feature_value(const uint32_t* iw, int w1,
-                                               const int* fi,
-                                               const float* fw) {
-  const int n = fi[0];
-  float val = 0.0f;
-  for (int r = 0; r < n; ++r) {
-    const int* q = fi + 1 + 4 * r;
-    const float rs =
-        static_cast<float>(static_cast<int32_t>(rect_sum(iw, w1, q[0], q[1], q[2], q[3])));
-    const float term = __fmul_rn(rs, fw[r]);
-    val = (r == 0) ? term : __fadd_rn(val, term);
-  }
-  return val;
-}
 
 __global__ void __launch_bounds__(kThreads)
 pyramid_dense_kernel(const uint8_t* __restrict__ work, int H, int W,
                      const int* __restrict__ levels,
-                     const int* __restrict__ rtab,
-                     const int* __restrict__ feat_i,
-                     const float* __restrict__ feat_w,
-                     const int* __restrict__ weak_i,
-                     const float* __restrict__ weak_f, int n_weak,
-                     const float* __restrict__ stage_thr, int n_stages,
-                     int norm_w, int norm_h, float norm_area, float var_thr,
+                     const int* __restrict__ rtab, DENSE_CASCADE_PARAMS,
                      uint8_t* __restrict__ img_out,
                      float* __restrict__ vnf_out,
                      uint8_t* __restrict__ alive_out) {
@@ -136,29 +93,7 @@ pyramid_dense_kernel(const uint8_t* __restrict__ work, int H, int W,
   __syncthreads();
 
   // 2. prefix sums along rows, then along columns (uint32 wraparound)
-  for (int y = threadIdx.x; y < sh; y += blockDim.x) {
-    uint32_t* r = ii + (y + 1) * w1 + 1;
-    uint32_t* q = sq + (y + 1) * w1 + 1;
-    uint32_t a = 0u, c = 0u;
-    for (int x = 0; x < sw; ++x) {
-      a += r[x];
-      r[x] = a;
-      c += q[x];
-      q[x] = c;
-    }
-  }
-  __syncthreads();
-  for (int x = threadIdx.x; x < sw; x += blockDim.x) {
-    uint32_t a = 0u, c = 0u;
-    for (int y = 1; y <= sh; ++y) {
-      const int k = y * w1 + x + 1;
-      a += ii[k];
-      ii[k] = a;
-      c += sq[k];
-      sq[k] = c;
-    }
-  }
-  __syncthreads();
+  dense::prefix_tables(ii, sq, sh, sw);
 
   // 3.-5. one thread per window of the strided grid
   const size_t map0 = static_cast<size_t>(B) * L[kMapBase] +
@@ -166,37 +101,10 @@ pyramid_dense_kernel(const uint8_t* __restrict__ work, int H, int W,
   for (int w = threadIdx.x; w < ny * nx; w += blockDim.x) {
     const int iy = w / nx, ix = w - iy * nx;
     const int origin = iy * step * w1 + ix * step;
-    const uint32_t* iw = ii + origin;
-    const float vf = static_cast<float>(
-        static_cast<int32_t>(rect_sum(iw, w1, 1, 1, norm_w, norm_h)));
-    // the sq-sum is read as uint32 and rounded to nearest, like the
-    // engine's bitcast-uint32 view
-    const float sqf =
-        static_cast<float>(rect_sum(sq + origin, w1, 1, 1, norm_w, norm_h));
-    const float nf = __fsub_rn(__fmul_rn(norm_area, sqf), __fmul_rn(vf, vf));
-    bool alive = nf > var_thr;
-    const float vnf =
-        alive ? __frcp_rn(__fsqrt_rn(fmaxf(nf, 1e-20f))) : 1.0f;
-
-    int k = 0;
-    for (int s = 0; s < n_stages && alive; ++s) {
-      float ssum = 0.0f;
-      for (; k < n_weak && weak_i[k * kWeakI + 3] == s; ++k) {
-        const int* wi = weak_i + k * kWeakI;
-        const float* wf = weak_f + k * kWeakF;
-        const float f0 = __fmul_rn(
-            feature_value(iw, w1, feat_i + wi[0] * kFeatFields,
-                          feat_w + wi[0] * kMaxRects), vnf);
-        const int side = (f0 < wf[0]) ? 1 : 2;  // featL : featR
-        const float child = __fmul_rn(
-            feature_value(iw, w1, feat_i + wi[side] * kFeatFields,
-                          feat_w + wi[side] * kMaxRects), vnf);
-        const float leaf = (child < wf[side]) ? wf[1 + 2 * side]
-                                              : wf[2 + 2 * side];
-        ssum = __fadd_rn(ssum, leaf);
-      }
-      alive = ssum >= stage_thr[s];
-    }
+    float vnf;
+    const bool alive =
+        dense::eval_window<false>(ii + origin, sq + origin, nullptr, w1,
+                                  DENSE_CASCADE_ARGS, &vnf);
     vnf_out[map0 + w] = vnf;
     alive_out[map0 + w] = alive ? 1 : 0;
   }
@@ -222,9 +130,8 @@ extern "C" int pyramid_dense_launch(
   const dim3 grid(n_levels, B);
   pyramid_dense_kernel<<<grid, kThreads, smem_bytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      work, H, W, levels, rtab, feat_i, feat_w, weak_i, weak_f, n_weak,
-      stage_thr, n_stages, norm_w, norm_h, norm_area, var_thr, img_out,
-      vnf_out, alive_out);
+      work, H, W, levels, rtab, DENSE_CASCADE_ARGS, img_out, vnf_out,
+      alive_out);
   return static_cast<int>(cudaGetLastError());
 }
 

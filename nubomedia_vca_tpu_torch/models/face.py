@@ -142,16 +142,16 @@ class FaceDetector:
     device.
 
     `process(gray_batch)` returns a list per frame of TrackedFace. Host
-    frames are copied to `device`; resize → equalize → multiscale cascade →
-    grouping run there, tracking on the host. A CUDA device runs the
-    cascade's dense phase as the hand-written kernel; a CUDA request on a
-    host without CUDA raises.
+    frames are copied to `device` (the card unless the caller asks for
+    another); resize → equalize → multiscale cascade → grouping run there,
+    tracking on the host. A CUDA device runs the cascade's dense phase as
+    the hand-written kernel; a CUDA request on a host without CUDA raises.
     """
 
     def __init__(self, frame_size: tuple[int, int],
                  config: FaceDetectorConfig | None = None,
                  n_streams: int = 1,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.device = _resolve_device(device)
         self.config = config or FaceDetectorConfig()
         self.frame_w, self.frame_h = frame_size

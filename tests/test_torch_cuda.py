@@ -1,6 +1,7 @@
-"""CUDA tests of the PyTorch port: the hand-written pyramid dense kernel
-against its plain PyTorch version on the card, and the face path on CUDA
-against the port's CPU run.
+"""CUDA tests of the PyTorch port: each hand-written kernel (the pyramid
+dense kernel, the tilted and row-strip forms of the level kernel, the
+integral-tables kernel) against its plain PyTorch version on the card, and
+the face and part detectors on CUDA against the port's CPU run.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. On a
 GPU host without JAX, run them with
@@ -13,14 +14,22 @@ GPU host without JAX, run them with
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from nubomedia_vca_tpu_torch.cascade.engine import CascadeEngine, load_cascade
+from nubomedia_vca_tpu_torch.cascade.paths import PKG_ASSETS_DIR
+from nubomedia_vca_tpu_torch.models import (EyeDetector, MouthDetector,
+                                            NoseDetector)
 from nubomedia_vca_tpu_torch.models.face import (DEFAULT_FACE_CASCADE,
                                                  FaceDetector)
-from nubomedia_vca_tpu_torch.ops.cuda import dense_cuda
+from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
+                                              integral_cuda)
+from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
+from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
 from nubomedia_vca_tpu_torch.utils.synth import face_clip, face_scene
 
 pytestmark = pytest.mark.cuda
@@ -80,12 +89,121 @@ def test_kernel_wrapper_checks_inputs(cuda_device):
                         device=cuda_device).transpose(1, 2), eng._plan)
 
 
-def test_large_level_raises_on_cuda(cuda_device):
-    """A 320-px work image has levels beyond one block's shared memory: the
-    engine refuses them on CUDA instead of running them elsewhere."""
-    with pytest.raises(NotImplementedError, match="strip"):
-        CascadeEngine(load_cascade(DEFAULT_FACE_CASCADE), (320, 180),
-                      device=cuda_device)
+def test_large_level_takes_strip_kernel_on_cuda(cuda_device):
+    """A 320-px work image has levels beyond one block's shared memory:
+    they go to the row-strip kernel, one launch per such level, and the
+    raw candidates equal the CPU engine's."""
+    casc = load_cascade(DEFAULT_FACE_CASCADE)
+    eng = CascadeEngine(casc, (320, 180), device=cuda_device)
+    n_strip = eng.routes.count("strips")
+    assert n_strip > 0 and eng.routes.count("pyramid") > 0
+    frames = np.stack([face_scene(320, 180, faces=((160, 90, 60),), seed=s)
+                       for s in range(4)])
+    before = (dense_level_cuda.dense_level_strips.launches,
+              dense_cuda.pyramid_dense_phase.launches)
+    got = eng.detect_raw(frames)
+    torch.cuda.synchronize()
+    assert (dense_level_cuda.dense_level_strips.launches - before[0],
+            dense_cuda.pyramid_dense_phase.launches - before[1]) == (n_strip, 1)
+    want = CascadeEngine(casc, (320, 180), device="cpu").detect_raw(frames)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert want[1].any()
+
+
+def _part_work(size, n=8):
+    """n uint8 work images [n, h, w]: equalized synthetic 720p faces and
+    noise, on the card."""
+    w, h = size
+    faces = equalize_hist(resize_linear_exact(
+        torch.from_numpy(face_clip(n // 2, 1280, 720, seed=3)), (w, h)))
+    noise = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (n - n // 2, h, w), np.uint8))
+    return torch.cat([faces, noise])
+
+
+@pytest.mark.parametrize("name,min_size", [
+    ("haarcascade_smile.xml", (1, 1)),
+    ("haarcascade_righteye_2splits.xml", (20, 20)),
+    ("haarcascade_lefteye_2splits.xml", (20, 20))])
+def test_tilted_kernel_equals_plain_version(cuda_device, name, min_size):
+    """The tilted level kernel on every level of the tilted route at 720p
+    (320x180 part image): ii, iit, vnf and alive exactly."""
+    eng = CascadeEngine(load_cascade(os.path.join(PKG_ASSETS_DIR, name)),
+                        (320, 180), 1.1, min_size=min_size,
+                        device=cuda_device)
+    work = _part_work((320, 180)).to(cuda_device)
+    n_alive = 0
+    for li, plan in eng._level_plans.items():
+        l = eng.levels[li]
+        img = resize_linear_exact(work, (l.sw, l.sh))
+        before = dense_level_cuda.dense_level_tilted.launches
+        got = dense_level_cuda.dense_level_tilted(img, plan)
+        assert dense_level_cuda.dense_level_tilted.launches == before + 1
+        want = dense_level_cuda.dense_level_reference(img, plan)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("ii", "iit", "vnf", "alive")):
+            assert torch.equal(g, w), f"level {li} {what}"
+        n_alive += int(got[3].sum())
+    assert n_alive > 0
+
+
+def test_strip_kernel_equals_plain_version(cuda_device):
+    """The row-strip kernel on the nose's four strip levels at 320x180
+    (ragged last strips), and with one strip on a level the pyramid kernel
+    takes: vnf and alive exactly."""
+    eng = CascadeEngine(
+        load_cascade(os.path.join(PKG_ASSETS_DIR, "vca_nose_synthetic.xml")),
+        (320, 180), 1.1, min_size=(1, 1), device=cuda_device)
+    plans = dict(eng._level_plans)
+    assert sorted(plans) == [0, 1, 2, 3]
+    plans[4] = dense_level_cuda.DenseLevelPlan.make(
+        eng.levels[4], eng._tables, tilted=False)
+    assert plans[4].n_strips == 1
+    work = _part_work((320, 180)).to(cuda_device)
+    for li, plan in plans.items():
+        l = eng.levels[li]
+        img = resize_linear_exact(work, (l.sw, l.sh))
+        got = dense_level_cuda.dense_level_strips(img, plan)
+        want = dense_level_cuda.dense_level_reference(img, plan)[2:]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), f"level {li} vnf"
+        assert torch.equal(got[1], want[1]), f"level {li} alive"
+        assert got[1].sum() > 0
+
+
+@pytest.mark.parametrize("hw", [(180, 320), (112, 199), (37, 53), (1, 1)])
+def test_integral_kernel_equals_plain_version(cuda_device, hw):
+    img = torch.from_numpy(np.random.RandomState(sum(hw)).randint(
+        0, 256, (5,) + hw, np.uint8)).to(cuda_device)
+    img[0] = 255                      # the largest sums
+    before = integral_cuda.integral_tables.launches
+    got = integral_cuda.integral_tables(img)
+    assert integral_cuda.integral_tables.launches == before + 1
+    want = integral_cuda.integral_tables_reference(img)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("detector", [NoseDetector, MouthDetector,
+                                      EyeDetector])
+def test_part_detector_cuda_equals_cpu(cuda_device, detector):
+    """Per-frame outputs and the device pass's raw results (grouped faces,
+    compacted part candidates, overflow) equal the CPU run's, at 720p over
+    two consecutive batches of one stream."""
+    clip = face_clip(8, 1280, 720, seed=11)
+    gpu = detector((1280, 720), device=cuda_device)
+    cpu = detector((1280, 720), device="cpu")
+    for b in (clip[:4], clip[4:]):
+        assert gpu.process(b) == cpu.process(b)
+    (f_g, p_g), (f_c, p_c) = gpu._device_pass(clip[:4]), cpu._device_pass(
+        clip[:4])
+    for g, w in zip(f_g, f_c):
+        assert np.array_equal(g, w)
+    for name in p_c:
+        for g, w in zip(p_g[name], p_c[name]):
+            assert np.array_equal(g, w), name
 
 
 def test_face_process_cuda_equals_cpu(cuda_device):

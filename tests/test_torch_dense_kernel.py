@@ -7,7 +7,8 @@
   them, by a numpy mirror of the kernel's arithmetic: checks the table
   layout the CUDA kernel gets, which only a GPU can run.
 * The wrapper: CPU tensors take the plain version and launch nothing; bad
-  inputs raise; levels beyond one block's shared memory raise on CUDA.
+  inputs raise; the plan takes only levels within one block's shared
+  memory (the engine routes larger ones to the row-strip kernel).
 
 The CUDA kernel itself is compared with the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -45,7 +46,7 @@ def engines():
     jeng = JaxEngine(casc, WORK, 1.25, use_pallas_dense=True,
                      use_pallas_pyramid=True)
     peng = CascadeEngine(cascade_from_numpy(dataclasses.asdict(casc)), WORK,
-                         1.25)
+                         1.25, device="cpu")
     return jeng, peng
 
 
@@ -58,7 +59,7 @@ def work():
     return np.concatenate([face.numpy(), noise])
 
 
-def _norm_terms(img, l, plan):
+def _norm_terms(img, l, tabs):
     """float32 area*sqsum and sum^2 of every strided window of level image
     img [B,sh,sw] (the two products the variance normalization subtracts)."""
     x = img.astype(np.int64)
@@ -67,14 +68,14 @@ def _norm_terms(img, l, plan):
     oy = (np.arange(l.ny) * l.ystep)[:, None]
     ox = (np.arange(l.nx) * l.ystep)[None, :]
 
-    x1, y1 = 1 + plan.norm_w, 1 + plan.norm_h
+    x1, y1 = 1 + tabs.norm_w, 1 + tabs.norm_h
 
     def win(t):   # the normalization rect at (1, 1)
         return (t[:, oy + 1, ox + 1] - t[:, oy + 1, ox + x1]
                 - t[:, oy + y1, ox + 1] + t[:, oy + y1, ox + x1])
 
     vf = win(ii).astype(np.float32)
-    return np.float32(plan.norm_area) * win(sq).astype(np.float32), vf * vf
+    return np.float32(tabs.norm_area) * win(sq).astype(np.float32), vf * vf
 
 
 def test_plain_version_matches_pallas_kernel(engines, work):
@@ -113,9 +114,9 @@ def test_plain_version_matches_pallas_kernel(engines, work):
 
         vnf, w_vnf = vnf.numpy(), np.asarray(w_vnf)
         a, p = _norm_terms(work if img_l is None else img_l.numpy(),
-                           peng.levels[li], peng._plan)
+                           peng.levels[li], peng._tables)
         nf = a - p
-        valid = nf > np.float32(peng._plan.var_thr)
+        valid = nf > np.float32(peng._tables.var_thr)
         unfused = np.where(
             valid, np.float32(1) / np.sqrt(np.maximum(nf, np.float32(1e-20))),
             np.float32(1))
@@ -138,7 +139,8 @@ def _kernel_mirror(plan, work):
     per level, the 2-tap resize from the packed index/coefficient tables,
     uint32 integral tables, and the window loop over the strided grid with
     the weak-tree records (float32 throughout)."""
-    t = plan._host
+    t = {**plan._host, **plan.tables.host}
+    tabs = plan.tables
     f32 = np.float32
     B, H, W = work.shape
     out = []
@@ -168,6 +170,7 @@ def _kernel_mirror(plan, work):
 
         def feature(fid):
             fi, fw = t["feat_i"][fid], t["feat_w"][fid]
+            assert fi[-1] == 0            # no tilted feature
             val = None
             for r in range(fi[0]):
                 x, y, w, hh = fi[1 + 4 * r:5 + 4 * r]
@@ -175,13 +178,13 @@ def _kernel_mirror(plan, work):
                 val = term if val is None else val + term
             return val
 
-        vf = rect(ii, 1, 1, plan.norm_w, plan.norm_h).view(np.int32).astype(f32)
-        sqf = rect(sq, 1, 1, plan.norm_w, plan.norm_h).astype(f32)
-        nf = f32(plan.norm_area) * sqf - vf * vf
-        alive = nf > f32(plan.var_thr)
+        vf = rect(ii, 1, 1, tabs.norm_w, tabs.norm_h).view(np.int32).astype(f32)
+        sqf = rect(sq, 1, 1, tabs.norm_w, tabs.norm_h).astype(f32)
+        nf = f32(tabs.norm_area) * sqf - vf * vf
+        alive = nf > f32(tabs.var_thr)
         vnf = np.where(alive, f32(1) / np.sqrt(np.maximum(nf, f32(1e-20))),
                        f32(1))
-        for s in range(plan.n_dense):
+        for s in range(tabs.n_dense):
             ssum = np.zeros_like(vnf)
             for k in np.nonzero(t["weak_i"][:, 3] == s)[0]:
                 (f0, fl, fr, _), wf = t["weak_i"][k], t["weak_f"][k]
@@ -240,19 +243,24 @@ def test_wrapper_checks_inputs(engines):
                                           ((160, 120), True),
                                           ((320, 180), False)])
 def test_plan_shared_memory_budget(engines, work_wh, fits):
-    """Both integral tables of the largest level must fit one block's
-    227 KB of shared memory (160x120: 161*121*8 = 155,848 B); larger levels
-    raise NotImplementedError naming the row-strip kernel still to port."""
+    """The pyramid kernel takes the levels whose two integral tables fit
+    one block's 227 KB of shared memory (160x120: 161*121*8 = 155,848 B);
+    the engine sends larger levels to the row-strip kernel, and a plan
+    given one raises."""
     _, peng = engines
-    plan = dense_cuda.PyramidDensePlan(
-        work_wh, (20, 20), CascadeEngine(peng.cascade, work_wh).levels,
-        peng._feat_rects, peng._dense, peng.n_dense_stages)
+    eng = CascadeEngine(peng.cascade, work_wh, device="cpu")
     w, h = work_wh
-    assert plan.smem_bytes == 8 * (w + 1) * (h + 1)
+    assert dense_cuda.pyramid_smem_bytes(eng.levels[0]) == 8 * (w + 1) * (h + 1)
+    plan = dense_cuda.PyramidDensePlan(work_wh, eng.levels, eng._tables)
     if fits:
+        assert eng.routes == ["pyramid"] * len(eng.levels)
         plan.check_fits()
     else:
-        with pytest.raises(NotImplementedError, match="strip_kernel"):
+        assert eng.routes[0] == "strips" and "pyramid" in eng.routes
+        assert eng._plan.levels == tuple(
+            l for l, r in zip(eng.levels, eng.routes) if r == "pyramid")
+        eng._plan.check_fits()
+        with pytest.raises(ValueError, match="shared memory"):
             plan.check_fits()
 
 

@@ -1,15 +1,20 @@
-"""The PyTorch port's CascadeEngine against the JAX package's on the CPU,
-at the main path's 160x90 work size (1280x720 at the 160-px working width).
+"""The PyTorch port's CascadeEngine against the JAX package's on the CPU:
+the face cascade at the main path's 160x90 work size (1280x720 at the
+160-px working width), a tilted cascade (the eyes' 2splits), and the nose
+cascade, whose stages all fall in the dense block, at the part chain's
+320x180.
 
 The cascade crosses over as numpy fields (``cascade_from_numpy``); the host
-tables must be identical, and ``candidates()``, ``detect()`` and
-``detect_grouped()`` must agree exactly on the same uint8 work images.
+tables must be identical, and ``candidates()``, ``detect()``,
+``detect_grouped()`` and ``detect_raw()`` must agree exactly on the same
+uint8 work images.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import filecmp
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +27,7 @@ from nubomedia_vca_tpu.ops.histogram import equalize_hist as j_equalize
 from nubomedia_vca_tpu.ops.resize import resize_linear_exact as j_resize
 from nubomedia_vca_tpu_torch.cascade import engine as port_engine
 from nubomedia_vca_tpu_torch.cascade.engine import CascadeEngine
+from nubomedia_vca_tpu_torch.cascade.paths import PKG_ASSETS_DIR
 from nubomedia_vca_tpu_torch.cascade.xml_loader import (cascade_from_numpy,
                                                         load_cascade_xml as
                                                         port_load)
@@ -31,8 +37,10 @@ from nubomedia_vca_tpu_torch.utils.synth import face_clip, face_scene
 torch.set_num_threads(2)
 
 FACE_XML = "/usr/share/opencv4/haarcascades/haarcascade_frontalface_alt.xml"
-EYE_2SPLITS_XML = ("/usr/share/opencv4/haarcascades/"
-                   "haarcascade_lefteye_2splits.xml")
+OPENCV_DIR = "/usr/share/opencv4/haarcascades"
+NOSE_XML = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))),
+    "nubomedia_vca_tpu", "assets", "haarcascades", "vca_nose_synthetic.xml")
 WORK = (160, 90)
 
 
@@ -41,7 +49,7 @@ def engines():
     casc = load_cascade_xml(FACE_XML)
     jeng = JaxEngine(casc, WORK, 1.25)
     peng = CascadeEngine(cascade_from_numpy(dataclasses.asdict(casc)), WORK,
-                         1.25)
+                         1.25, device="cpu")
     return jeng, peng
 
 
@@ -56,9 +64,18 @@ def work():
     return np.concatenate([faces, two[None]])
 
 
-def test_bundled_cascade_is_opencv_copy():
-    assert filecmp.cmp(DEFAULT_FACE_CASCADE, FACE_XML, shallow=False)
-    a, b = port_load(DEFAULT_FACE_CASCADE), load_cascade_xml(FACE_XML)
+@pytest.mark.parametrize("name", [
+    "haarcascade_frontalface_alt.xml", "haarcascade_righteye_2splits.xml",
+    "haarcascade_lefteye_2splits.xml", "haarcascade_smile.xml",
+    "vca_nose_synthetic.xml"])
+def test_bundled_cascade_is_opencv_copy(name):
+    """The port's cascades are byte-identical copies of OpenCV's (license
+    headers included) and of the JAX package's trained nose cascade."""
+    source = (NOSE_XML if name.startswith("vca_")
+              else os.path.join(OPENCV_DIR, name))
+    bundled = os.path.join(PKG_ASSETS_DIR, name)
+    assert filecmp.cmp(bundled, source, shallow=False)
+    a, b = port_load(bundled), load_cascade_xml(source)
     for f in dataclasses.fields(a):
         if f.name != "name":
             assert np.array_equal(getattr(a, f.name), getattr(b, f.name))
@@ -77,11 +94,10 @@ def test_host_tables_equal(engines):
     assert len(peng._blocks) == len(jeng._blocks) > 0
     for pb, jb in zip(peng._blocks, jeng._blocks):
         for f in dataclasses.fields(jb):
-            if f.name == "w_tilt":    # the port refuses tilted cascades
-                assert jb.w_tilt is None and not hasattr(pb, "w_tilt")
-                continue
             pv, jv = getattr(pb, f.name), getattr(jb, f.name)
-            if isinstance(jv, np.ndarray):
+            if jv is None:            # w_tilt of a non-tilted cascade
+                assert pv is None, f.name
+            elif isinstance(jv, np.ndarray):
                 assert pv.dtype == jv.dtype and np.array_equal(pv, jv), f.name
             else:
                 assert pv == jv, f.name
@@ -126,11 +142,69 @@ def test_detect_grouped_matches_jax_in_valid_slots(engines, work):
     assert np.array_equal(overflow, w_overflow)
 
 
-def test_engine_refuses_tilted_cascade():
-    casc = port_load(EYE_2SPLITS_XML)
-    assert casc.has_tilted
-    with pytest.raises(NotImplementedError, match="build_dense_phase"):
-        CascadeEngine(casc, (64, 48), 1.1)
+def _truncated(casc, n_stages):
+    """The cascade's first n_stages stages (weak trees and thresholds)."""
+    keep = casc.weak_stage < n_stages
+    return dataclasses.replace(
+        casc, feat0=casc.feat0[keep], thr0=casc.thr0[keep],
+        featL=casc.featL[keep], thrL=casc.thrL[keep],
+        leavesL=casc.leavesL[keep], featR=casc.featR[keep],
+        thrR=casc.thrR[keep], leavesR=casc.leavesR[keep],
+        weak_stage=casc.weak_stage[keep],
+        stage_thresholds=casc.stage_thresholds[:n_stages])
+
+
+def _raw_equal(got, want):
+    """detect_raw outputs equal slot for slot: boxes, valid, overflow."""
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("side,n_stages,n_blocks", [("left", 11, 2),
+                                                    ("right", 7, 1)])
+def test_tilted_engine_matches_jax(side, n_stages, n_blocks):
+    """A tilted cascade (the eyes' 2splits, cut to a few stages so that
+    synthetic faces pass them) at 96x72: every level takes the tilted
+    dense kernel's plain version, survivors gather sum- and tilted-table
+    patches, and the matmul blocks read tilted features. The raw output
+    equals the JAX engine's slot for slot."""
+    casc = _truncated(load_cascade_xml(
+        f"/usr/share/opencv4/haarcascades/haarcascade_{side}eye_2splits.xml"),
+        n_stages)
+    peng = CascadeEngine(cascade_from_numpy(dataclasses.asdict(casc)),
+                         (96, 72), 1.25, device="cpu")
+    assert peng.routes == ["tilted"] * len(peng.levels)
+    assert len(peng._blocks) == n_blocks
+    assert all(b.w_tilt is not None for b in peng._blocks)
+    assert peng._patch_dtype == torch.float64
+    jeng = JaxEngine(casc, (96, 72), 1.25)
+    faces = np.stack([face_scene(96, 72, faces=((48, 36, s),), seed=s)
+                      for s in (14, 18, 22, 26, 30)])
+    noise = np.random.RandomState(1).randint(0, 256, (2, 72, 96), np.uint8)
+    work = np.concatenate([np.asarray(j_equalize(jnp.asarray(faces))), noise])
+    got, want = peng.detect_raw(work), jeng.detect_raw(jnp.asarray(work))
+    _raw_equal(got, want)
+    assert got[1].any()
+
+
+def test_no_block_engine_matches_jax():
+    """The nose cascade (3 stages, 6 weak trees: all in the dense block,
+    no matmul block) at the part chain's 320x180: the four largest levels
+    take the row-strip route (ragged last strips), the others the pyramid
+    kernel's; the dense survivors are emitted as they are. Raw output equal
+    to the JAX engine's slot for slot."""
+    casc = load_cascade_xml(NOSE_XML)
+    peng = CascadeEngine(cascade_from_numpy(dataclasses.asdict(casc)),
+                         (320, 180), 1.1, min_size=(1, 1), device="cpu")
+    assert not peng._blocks and peng.n_dense_stages == casc.n_stages == 3
+    assert peng.routes == ["strips"] * 4 + ["pyramid"] * 20
+    assert [peng._level_plans[li].n_strips for li in range(4)] == [3, 2, 2, 2]
+    jeng = JaxEngine(casc, (320, 180), 1.1, min_size=(1, 1))
+    frames = face_clip(2, 1280, 720, seed=11)
+    work = np.asarray(j_equalize(j_resize(jnp.asarray(frames), (320, 180))))
+    got, want = peng.detect_raw(work), jeng.detect_raw(jnp.asarray(work))
+    _raw_equal(got, want)
+    assert got[1].sum() > 0
 
 
 @pytest.mark.parametrize("setting", ["allow_tf32", "precision"])
@@ -146,7 +220,7 @@ def test_engine_requires_true_f32_matmul(engines, setting):
         else:
             torch.set_float32_matmul_precision("high")
         with pytest.raises(RuntimeError, match="TF32|highest"):
-            CascadeEngine(peng.cascade, WORK, 1.25)
+            CascadeEngine(peng.cascade, WORK, 1.25, device="cpu")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved[0]
         torch.set_float32_matmul_precision(saved[1])
@@ -162,8 +236,22 @@ def test_engine_rejects_frames_of_other_size_or_device(engines):
 
 
 def test_get_engine_caches_per_configuration():
-    a = port_engine.get_engine(DEFAULT_FACE_CASCADE, WORK, 1.25)
-    b = port_engine.get_engine(DEFAULT_FACE_CASCADE, WORK, 1.25, device="cpu")
-    c = port_engine.get_engine(DEFAULT_FACE_CASCADE, WORK, 1.2)
+    a = port_engine.get_engine(DEFAULT_FACE_CASCADE, WORK, 1.25,
+                               device="cpu")
+    b = port_engine.get_engine(DEFAULT_FACE_CASCADE, WORK, 1.25,
+                               device=torch.device("cpu"))
+    c = port_engine.get_engine(DEFAULT_FACE_CASCADE, WORK, 1.2, device="cpu")
     assert a is b and a is not c
     assert a.device == torch.device("cpu")
+
+
+def test_engine_defaults_to_cuda(engines):
+    """Without a device argument the engine runs on the card: on a host
+    without CUDA it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    _, peng = engines
+    with pytest.raises(RuntimeError, match="cuda"):
+        CascadeEngine(peng.cascade, WORK, 1.25)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_engine.get_engine(DEFAULT_FACE_CASCADE, WORK, 1.25)

@@ -20,8 +20,9 @@ from nubomedia_vca_tpu.models.face import FaceDetector as JaxFaceDetector
 from nubomedia_vca_tpu.models.face import (FaceDetectorConfig as
                                            JaxFaceDetectorConfig)
 from nubomedia_vca_tpu_torch.models.base import bucket_pad
-from nubomedia_vca_tpu_torch.models.face import (FaceDetector,
-                                                 FaceDetectorConfig)
+from nubomedia_vca_tpu_torch.models import (EyeDetector, FaceDetector,
+                                           FaceDetectorConfig, MouthDetector,
+                                           NoseDetector)
 from nubomedia_vca_tpu_torch.utils.synth import face_clip
 
 torch.set_num_threads(2)
@@ -51,7 +52,7 @@ def test_process_matches_jax(clips, size, x_every_4):
     jfd = JaxFaceDetector(size, JaxFaceDetectorConfig(
         process_x_every_4_frames=x_every_4))
     pfd = FaceDetector(size, FaceDetectorConfig(
-        process_x_every_4_frames=x_every_4))
+        process_x_every_4_frames=x_every_4), device="cpu")
     want = _as_tuples(jfd.process(clip))
     got = _as_tuples(pfd.process(clip))
     assert got == want
@@ -65,7 +66,8 @@ def test_detect_boxes_ungrouped_matches_jax(clips):
     """min_neighbors=0: raw candidates scaled back to frame coordinates."""
     clip = clips[(1280, 720)][:4]
     jfd = JaxFaceDetector((1280, 720), JaxFaceDetectorConfig(min_neighbors=0))
-    pfd = FaceDetector((1280, 720), FaceDetectorConfig(min_neighbors=0))
+    pfd = FaceDetector((1280, 720), FaceDetectorConfig(min_neighbors=0),
+                       device="cpu")
     for g, w in zip(pfd.detect_boxes(clip), jfd.detect_boxes(clip)):
         assert len(w) > 0
         assert np.array_equal(np.sort(g, axis=0), np.sort(w, axis=0))
@@ -82,7 +84,7 @@ def test_jax_face_detector_fires_on_synth_frames(clips):
 
 def test_reconfigure_keeps_tracks_and_swaps_engine(clips):
     clip = clips[(640, 480)][:4]
-    fd = FaceDetector((640, 480))
+    fd = FaceDetector((640, 480), device="cpu")
     first = fd.process(clip)
     eng = fd.engine
     fd.reconfigure(FaceDetectorConfig(multi_scale_factor=20))
@@ -92,13 +94,18 @@ def test_reconfigure_keeps_tracks_and_swaps_engine(clips):
 
 
 def test_port_imports_no_jax():
-    """Importing the port's face path, its kernel wrapper and chip_smoke.py
-    leaves jax and the JAX package out of sys.modules."""
+    """Importing the port's face path and part chain, its kernel wrappers
+    and chip_smoke.py leaves jax and the JAX package out of sys.modules."""
     code = (
         "import sys\n"
         "import chip_smoke\n"
-        "import nubomedia_vca_tpu_torch.models.face\n"
+        "import nubomedia_vca_tpu_torch.models\n"
+        "import nubomedia_vca_tpu_torch.models.eye\n"
+        "import nubomedia_vca_tpu_torch.models.mouth\n"
+        "import nubomedia_vca_tpu_torch.models.nose\n"
         "import nubomedia_vca_tpu_torch.ops.cuda.dense_cuda\n"
+        "import nubomedia_vca_tpu_torch.ops.cuda.dense_level_cuda\n"
+        "import nubomedia_vca_tpu_torch.ops.cuda.integral_cuda\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nubomedia_vca_tpu')]\n"
         "assert not bad, bad\n"
@@ -115,3 +122,14 @@ def test_cuda_request_raises_without_cuda():
         pytest.skip("this host has CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
         FaceDetector((1280, 720), device="cuda")
+
+
+@pytest.mark.parametrize("detector", [FaceDetector, NoseDetector,
+                                      MouthDetector, EyeDetector])
+def test_entry_points_default_to_cuda(detector):
+    """Without a device argument every detector runs on the card: on a host
+    without CUDA it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        detector((1280, 720))

@@ -1,6 +1,6 @@
 """Parity of the PyTorch port's image ops with the JAX package on the CPU:
-exact INTER_LINEAR_EXACT resize, equalizeHist, integral tables and
-minNeighbors grouping. Inputs are made from a seed with numpy and handed to
+exact INTER_LINEAR_EXACT resize, equalizeHist, integral tables (plain,
+squared and tilted) and minNeighbors grouping. Inputs are made from a seed with numpy and handed to
 both; every comparison is exact.
 """
 
@@ -15,12 +15,16 @@ import torch
 from nubomedia_vca_tpu.ops import grouping as jgrouping
 from nubomedia_vca_tpu.ops.histogram import equalize_hist as j_equalize
 from nubomedia_vca_tpu.ops.integral import (integral_image as j_ii,
-                                            sq_integral_image as j_sq)
+                                            sq_integral_image as j_sq,
+                                            tilted_integral_image as j_tilt,
+                                            tilted_integral_image_scan,
+                                            tilted_integral_np)
 from nubomedia_vca_tpu.ops.resize import resize_linear_exact as j_resize
 from nubomedia_vca_tpu_torch.ops import grouping
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
 from nubomedia_vca_tpu_torch.ops.integral import (integral_image,
-                                                  sq_integral_image)
+                                                  sq_integral_image,
+                                                  tilted_integral_image)
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
 
 torch.set_num_threads(2)
@@ -69,6 +73,30 @@ def test_integral_tables_match_jax(hw):
         got = port(torch.from_numpy(img))
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), np.asarray(ref(jnp.asarray(img))))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (1, 9), (9, 1), (5, 3), (7, 13),
+                                (13, 7), (41, 67), (40, 48)])
+def test_tilted_integral_matches_jax(hw):
+    """The tilted table equals the JAX package's (skewed prefix sums), its
+    row-recurrence witness, and the definition (tilted_integral_np), on
+    small odd sizes where the 45-degree triangles clip every edge."""
+    img = _u8(sum(hw), (2,) + hw)
+    got = tilted_integral_image(torch.from_numpy(img))
+    assert got.dtype == torch.int32 and got.shape == (2, hw[0] + 1, hw[1] + 1)
+    got = got.numpy()
+    assert np.array_equal(got, np.asarray(j_tilt(jnp.asarray(img))))
+    assert np.array_equal(
+        got, np.asarray(tilted_integral_image_scan(jnp.asarray(img))))
+    assert np.array_equal(got[1], tilted_integral_np(img[1]).astype(np.int32))
+
+
+def test_tilted_integral_keeps_leading_dims():
+    img = _u8(4, (2, 3, 6, 5))
+    got = tilted_integral_image(torch.from_numpy(img))
+    assert got.shape == (2, 3, 7, 6)
+    flat = tilted_integral_image(torch.from_numpy(img.reshape(6, 6, 5)))
+    assert torch.equal(got.reshape(6, 7, 6), flat)
 
 
 def _rect_sets(seed, B, n):
