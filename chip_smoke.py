@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: the face
-path and the part chain (nose, mouth, eyes).
+path, the part chain (nose, mouth, eyes) and the learned face detector
+(int8 and bf16).
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
 Phases, each printing its findings, any failure ending the run non-zero:
 
 1. device check: CUDA present; card name and power limit; torch/CUDA;
-2. build: compile the three CUDA sources with nvcc, one process each, all
+2. build: compile the four CUDA sources with nvcc, one process each, all
    started together (ptxas registers, spills and shared memory per kernel);
 3. kernels vs plain versions, exactly, on the same CUDA tensors:
    the pyramid dense kernel on B=64 synthetic 1280x720 (and 640x480) face
@@ -15,7 +16,11 @@ Phases, each printing its findings, any failure ending the run non-zero:
    320x180, the tilted level kernel on every level of the mouth's and eyes'
    tilted route (ii, iit, vnf, alive), the row-strip kernel on the nose's
    four strip levels and with one strip on a pyramid-sized level (vnf,
-   alive), and the integral kernel on the six large tilted levels;
+   alive), and the integral kernel on the six large tilted levels; the
+   int8 quantizer on the seven layer inputs of a B=64 720p int8 forward
+   and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all zeros), the
+   stochastic quantizer on the conv1 input for two seeds (values, scale,
+   and its mean rounding error within 5 sigma of 0);
 4. face path: ``FaceDetector((1280, 720), device="cuda").process`` over
    consecutive batches of one stream; the pyramid kernel must launch once
    per batch, at least one face must be tracked, and the tracked faces
@@ -28,11 +33,21 @@ Phases, each printing its findings, any failure ending the run non-zero:
    overflow flags) equal the port's CPU run; nose boxes, mouth candidates
    and alive windows after the dense phase of every tilted engine are
    non-zero;
-6. times (CUDA events, kernel and plain version in turns): each kernel at
+6. learned path: ``QuantizedCnnFaceDetector((1280, 720),
+   device="cuda").process`` over two B=64 batches of one stream: the
+   quantizer launches 7 times per forward, every layer's int8 tensor and
+   scale and the output equal the CPU run's, the tracked faces (ids and
+   rects) equal the CPU run's, at least one face is tracked; the bf16
+   ``CnnFaceDetector`` on the card tracks the same faces as on the CPU
+   (ids equal, rects within 2 px: cuDNN sums the bf16 convs in another
+   order);
+7. times (CUDA events, kernel and plain version in turns): each kernel at
    the main paths' shapes with its plain version, its bound from the
-   shapes and this run's data, and for the integral kernel the
-   ``torch.cumsum`` pair; the face path's device ms per batch; each
-   detector's ``process()`` frames/s at B=64 720p.
+   shapes and this run's data, and a PyTorch call computing the same
+   function where there is one (the ``torch.cumsum`` pair for the integral
+   kernel, ``abs().amax()`` + ``torch.quantize_per_tensor`` for the int8
+   quantizer); the face path's and the learned detectors' device ms per
+   batch; each detector's ``process()`` frames/s at B=64 720p.
 
 The last lines are the kernel summary as JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
@@ -55,11 +70,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from nubomedia_vca_tpu_torch.cascade.engine import get_engine  # noqa: E402
 from nubomedia_vca_tpu_torch.models import (  # noqa: E402
-    EyeDetector, FaceDetector, MouthDetector, NoseDetector)
+    CnnFaceDetector, EyeDetector, FaceDetector, MouthDetector, NoseDetector,
+    QuantizedCnnFaceDetector)
 from nubomedia_vca_tpu_torch.models.face import (  # noqa: E402
     DEFAULT_FACE_CASCADE)
+from nubomedia_vca_tpu_torch.ops import quant  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.cuda import (  # noqa: E402
-    _build, dense_cuda, dense_level_cuda, integral_cuda)
+    _build, dense_cuda, dense_level_cuda, integral_cuda, quant_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
@@ -69,6 +86,8 @@ FRAME = (1280, 720)
 BATCH = 64
 PART_BATCHES = 2       # consecutive batches of one stream on the part path
 PART_BATCH = 4         # frames per part-path batch
+LEARNED_BATCHES = 2    # consecutive B=64 batches of one stream, learned path
+BF16_ATOL = 0.0625     # bf16 forward, card vs CPU (tests/test_torch_cnn.py)
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the
 # float32 rate outside the tensor cores, which the dense kernels' integer
 # adds and float32 compares run at
@@ -89,7 +108,16 @@ KERNELS = {   # name → (launch counter, source, TPU kernel replaced)
     "integral_tables": (integral_cuda.integral_tables,
                         f"{CSRC}/integral_tables.cu",
                         f"{PALLAS}/integral_pallas.py:52"),
+    "quantize_int8": (quant_cuda.quantize_int8, f"{CSRC}/quant_int8.cu",
+                      f"{PALLAS}/quant_pallas.py:73"),
+    "quantize_int8_stochastic": (quant_cuda.quantize_int8_stochastic,
+                                 f"{CSRC}/quant_int8.cu",
+                                 f"{PALLAS}/quant_pallas.py:100"),
 }
+# No path runs it: the JAX package calls quantize_int8_stochastic_pallas
+# from nowhere (it exists for quantization-aware fine-tuning), so its
+# launches on the paths are 0; phase 3 holds it to its plain version.
+OFF_PATH = {"quantize_int8_stochastic"}
 DETECTORS = (NoseDetector, MouthDetector, EyeDetector)
 
 
@@ -187,7 +215,7 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 # ------------------------------------------------------------------ phases
 def build_all() -> None:
-    names = ("pyramid_dense", "dense_level", "integral_tables")
+    names = ("pyramid_dense", "dense_level", "integral_tables", "quant_int8")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         results = list(ex.map(_build.build_library, names))
     for name, (path, log, seconds) in zip(names, results):
@@ -296,6 +324,52 @@ def check_level_kernels(dev, dets, part_frames) -> dict[str, float]:
     return err
 
 
+def layer_inputs(dev, frames_720) -> list[torch.Tensor]:
+    """The seven float32 layer inputs of an int8 forward of the B=64 720p
+    batch on the card (what the int8 quantizer takes on the main path)."""
+    qdet = QuantizedCnnFaceDetector(FRAME, device=dev)
+    taps = []
+    qdet.model(qdet.letterbox(torch.from_numpy(frames_720).to(dev)), taps)
+    return [x for x, _, _ in taps]
+
+
+def check_quant(dev, xs) -> dict[str, float]:
+    """Both quantizers vs their plain versions, exactly; → max |err|."""
+    err = {"quantize_int8": 0.0, "quantize_int8_stochastic": 0.0}
+    rng = np.random.RandomState(7)
+    odd = [torch.from_numpy(rng.randn(n).astype(np.float32) * 3).to(dev)
+           for n in (1, 1023, 1025, 2**24 + 3)]
+    cases = [(f"layer {i} {tuple(x.shape)}", x) for i, x in enumerate(xs)]
+    cases += [(f"{x.numel()} elements", x) for x in odd]
+    cases.append(("all zeros", torch.zeros(4096, device=dev)))
+    for what, x in cases:
+        for g, w in zip(quant_cuda.quantize_int8(x),
+                        quant.quantize_int8_reference(x)):
+            err["quantize_int8"] = max(err["quantize_int8"], assert_equal(
+                g, w, f"quantize_int8 {what}"))
+    print(f"int8 quantizer: == plain (values, scale) on the 7 layer inputs "
+          f"of a B={BATCH} 720p int8 forward ({[x.numel() for x in xs]} "
+          "elements), on 1, 1023, 1025, 2^24+3 elements and all zeros")
+    x = xs[1]
+    for seed in (1, 2):
+        q, scale = quant_cuda.quantize_int8_stochastic(x, seed)
+        for g, w in zip((q, scale),
+                        quant.quantize_int8_stochastic_reference(x, seed)):
+            err["quantize_int8_stochastic"] = max(
+                err["quantize_int8_stochastic"],
+                assert_equal(g, w, f"stochastic quantizer seed {seed}"))
+        r = (x / scale).clamp(-127, 127).double()
+        frac = r - r.floor()
+        mean = float((q.double() - r).mean())
+        sigma = float((frac * (1 - frac)).sum().sqrt()) / r.numel()
+        print(f"stochastic quantizer, conv1 input {tuple(x.shape)}, seed "
+              f"{seed}: == plain; mean rounding error {mean:.3e} "
+              f"(sigma {sigma:.3e})")
+        if abs(mean) > 5 * sigma:
+            raise AssertionError("stochastic rounding is biased")
+    return err
+
+
 def face_path(dev, frames_720) -> tuple[dict[str, int], object]:
     clip = face_clip(4 * 16, *FRAME, seed=0)
     batches = np.split(clip, 4)
@@ -349,6 +423,8 @@ def predicted_launches(det) -> dict[str, int]:
         "dense_level_tilted": sum(e.routes.count("tilted") for e in engines),
         "dense_level_strips": sum(e.routes.count("strips") for e in engines),
         "integral_tables": sum(e.routes.count("tables") for e in engines),
+        "quantize_int8": 0,
+        "quantize_int8_stochastic": 0,
     }
 
 
@@ -410,7 +486,118 @@ def part_path(dets, dev) -> dict[str, int]:
     return total
 
 
-def times(dev, gpu, face_eng, dets, frames_720) -> dict[str, dict]:
+def as_tuples(faces):
+    return [[(f.id, f.rect()) for f in fs] for fs in faces]
+
+
+def learned_path(dev) -> dict[str, int]:
+    clip = face_clip(LEARNED_BATCHES * BATCH, *FRAME, seed=11)
+    batches = np.split(clip, LEARNED_BATCHES)
+    qdet = QuantizedCnnFaceDetector(FRAME, device=dev)
+    reset_counts()
+    out = []
+    for b in batches:
+        out += qdet.process(b)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: 0 for k in KERNELS}
+    want["quantize_int8"] = 7 * LEARNED_BATCHES
+    print(f"learned path (int8): {LEARNED_BATCHES} batches of {BATCH} "
+          f"frames, launches {counts}")
+    if counts != want:
+        raise AssertionError(f"expected {want}")
+    cpu = QuantizedCnnFaceDetector(FRAME, device="cpu")
+    cpu_out = []
+    for b in batches:
+        cpu_out += cpu.process(b)
+    if as_tuples(out) != as_tuples(cpu_out):
+        raise AssertionError("int8 tracked faces: CUDA differs from CPU")
+    n_tracked = sum(len(f) for f in out)
+    if n_tracked < 1:
+        raise AssertionError("no face tracked by the int8 detector")
+    canvas = cpu.letterbox(torch.from_numpy(batches[0]))
+    taps_g, taps_c = [], []
+    pred_g = qdet.model(canvas.to(dev), taps_g)
+    pred_c = cpu.model(canvas, taps_c)
+    for i, ((_, qg, sg), (_, qc, sc)) in enumerate(zip(taps_g, taps_c)):
+        assert_equal(qg.cpu(), qc, f"int8 layer {i} values")
+        assert_equal(sg.cpu(), sc, f"int8 layer {i} scale")
+    assert_equal(pred_g.cpu(), pred_c, "int8 forward output")
+    print(f"int8: tracked faces ({n_tracked} over {len(out)} frames, ids "
+          f"{sorted({f.id for fs in out for f in fs})}), the 7 layers' int8 "
+          "tensors and scales and the output: CUDA == CPU")
+    bdet, bcpu = (CnnFaceDetector(FRAME, device=d) for d in (dev, "cpu"))
+    perr = float((bdet.model(canvas.to(dev)).cpu()
+                  - bcpu.model(canvas)).abs().max())
+    g_out, c_out = [], []
+    for b in batches:
+        g_out += bdet.process(b)
+        c_out += bcpu.process(b)
+    gt, ct = as_tuples(g_out), as_tuples(c_out)
+    same = [len(a) == len(b) and all(
+        fa[0] == fb[0] and max(abs(u - v) for u, v in zip(fa[1], fb[1])) <= 2
+        for fa, fb in zip(a, b)) for a, b in zip(gt, ct)]
+    exact = sum(a == b for a, b in zip(gt, ct))
+    print(f"bf16: output max |CUDA - CPU| {perr:.4g} (tolerance "
+          f"{BF16_ATOL}); tracked faces equal in {exact} of {len(gt)} "
+          f"frames, within 2 px in {sum(same)}; "
+          f"{sum(len(f) for f in g_out)} faces")
+    if perr > BF16_ATOL or not all(same):
+        raise AssertionError("bf16 detector: CUDA differs from CPU")
+    return counts
+
+
+def time_quant(dev, gpu, xs, out) -> None:
+    """The int8 quantizer over the 7 layer inputs of a B=64 batch, and the
+    stochastic one on the conv1 input, with their plain versions, bounds
+    and (for the first) the library pair."""
+    n_el = sum(x.numel() for x in xs)
+    k, p, runs = in_turns(lambda: [quant_cuda.quantize_int8(x) for x in xs],
+                          lambda: [quant.quantize_int8_reference(x)
+                                   for x in xs], 50, 10)
+    # each element read once (4 B) and written once (1 B), plus the scale;
+    # abs, max, divide, round and two compares per element
+    b_ms, b_by = bound(5.0 * n_el + 4 * len(xs), 6.0 * n_el)
+    lib_ms, mism = None, None
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+
+    def library_pair():
+        return [torch.quantize_per_tensor(
+            x, x.abs().amax().clamp(min=1e-8) / 127.0, zero, torch.qint8)
+            for x in xs]
+
+    try:
+        lib = library_pair()
+        mism = sum(int((l.int_repr() != quant_cuda.quantize_int8(x)[0]).sum())
+                   for l, x in zip(lib, xs))
+        lib_ms = cuda_ms(library_pair, 50)
+        lib_note = (f"abs().amax() + torch.quantize_per_tensor {lib_ms:.4f} "
+                    f"ms, {mism} of {n_el} values differ from the kernel's")
+    except (RuntimeError, NotImplementedError) as e:
+        lib_note = ("abs().amax() + torch.quantize_per_tensor does not run "
+                    f"on the card: {str(e).splitlines()[0]}")
+    out["quantize_int8"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms)
+    print(f"time: int8 quantizer {k:.4f} ms per B={BATCH} 720p batch over "
+          f"its 7 calls ({n_el} elements; runs {runs}); bound {b_ms:.4f} ms "
+          f"({b_by}); {lib_note} [{gpu}]")
+    x = xs[1]
+    k, p, runs = in_turns(
+        lambda: quant_cuda.quantize_int8_stochastic(x, 1),
+        lambda: quant.quantize_int8_stochastic_reference(x, 1), 50, 10)
+    # + Philox4x32-10 per 4 elements: 10 rounds of 2 multiplies, 2 high
+    # multiplies, 4 xors and the 2 key adds; the add, floor, clamps and the
+    # conversion of u per element
+    b_ms, b_by = bound(5.0 * x.numel() + 4, (6.0 + 6.0 + 100 / 4)
+                       * x.numel())
+    out["quantize_int8_stochastic"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                           bound_by=b_by, library_ms=None)
+    print(f"time: stochastic int8 quantizer {k:.4f} ms on the conv1 input "
+          f"({x.numel()} elements; runs {runs}); bound {b_ms:.4f} ms "
+          f"({b_by}); no PyTorch call rounds stochastically [{gpu}]")
+
+
+def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
     out: dict[str, dict] = {}
     # pyramid kernel: the face path's 7 levels at 160x90
     work = work_images(frames_720, (160, 90), dev)
@@ -513,13 +700,25 @@ def times(dev, gpu, face_eng, dets, frames_720) -> dict[str, dict]:
           f"nose's 4 strip levels (320x180 .. 240x135; runs {runs}); bound "
           f"{b_ms:.4f} ms ({b_by}) [{gpu}]")
 
+    time_quant(dev, gpu, xs, out)
+
     gray = torch.from_numpy(frames_720).to(dev)
     dev_ms = cuda_ms(lambda: face_eng.detect_grouped(equalize_hist(
         resize_linear_exact(gray, (160, 90)))), 20)
     print(f"time: face device path (resize, equalize, cascade, grouping on "
           f"device-resident frames) {dev_ms:.4f} ms/batch, "
           f"{BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} 720p [{gpu}]")
-    for det in (FaceDetector(FRAME, device=dev), *dets.values()):
+    cnn_dets = [cls(FRAME, device=dev)
+                for cls in (QuantizedCnnFaceDetector, CnnFaceDetector)]
+    for det in cnn_dets:
+        canvas = det.letterbox(gray)
+        fwd_ms = cuda_ms(lambda: det.model(canvas), 20)
+        dev_ms = cuda_ms(lambda: det.detect_device(gray), 20)
+        print(f"time: {type(det).__name__} device path (letterbox, forward, "
+              f"decode, NMS on device-resident frames) {dev_ms:.4f} ms/batch "
+              f"({fwd_ms:.4f} ms of it the forward), "
+              f"{BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} 720p [{gpu}]")
+    for det in (FaceDetector(FRAME, device=dev), *dets.values(), *cnn_dets):
         det.process(frames_720)
         torch.cuda.synchronize()
         n_rep = 3
@@ -556,6 +755,8 @@ def main() -> int:
     err = {"pyramid_dense_phase": check_pyramid(dev, frames)}
     dets = part_engines(dev)
     err.update(check_level_kernels(dev, dets, frames[FRAME]))
+    xs = layer_inputs(dev, frames[FRAME])
+    err.update(check_quant(dev, xs))
 
     phase("4 face path")
     launches, face_eng = face_path(dev, frames[FRAME])
@@ -563,12 +764,16 @@ def main() -> int:
     phase("5 part path")
     for k, v in part_path(dets, dev).items():
         launches[k] += v
-    missing = [k for k, v in launches.items() if v == 0]
+
+    phase("6 learned path")
+    for k, v in learned_path(dev).items():
+        launches[k] += v
+    missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")
 
-    phase("6 times")
-    t = times(dev, gpu, face_eng, dets, frames[FRAME])
+    phase("7 times")
+    t = times(dev, gpu, face_eng, dets, frames[FRAME], xs)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

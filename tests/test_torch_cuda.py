@@ -1,7 +1,8 @@
 """CUDA tests of the PyTorch port: each hand-written kernel (the pyramid
 dense kernel, the tilted and row-strip forms of the level kernel, the
-integral-tables kernel) against its plain PyTorch version on the card, and
-the face and part detectors on CUDA against the port's CPU run.
+integral-tables kernel, the int8 quantizers) against its plain PyTorch
+version on the card, and the face, part and learned detectors on CUDA
+against the port's CPU run.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. On a
 GPU host without JAX, run them with
@@ -22,12 +23,14 @@ import torch
 
 from nubomedia_vca_tpu_torch.cascade.engine import CascadeEngine, load_cascade
 from nubomedia_vca_tpu_torch.cascade.paths import PKG_ASSETS_DIR
-from nubomedia_vca_tpu_torch.models import (EyeDetector, MouthDetector,
-                                            NoseDetector)
+from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EyeDetector,
+                                            MouthDetector, NoseDetector,
+                                            QuantizedCnnFaceDetector)
 from nubomedia_vca_tpu_torch.models.face import (DEFAULT_FACE_CASCADE,
                                                  FaceDetector)
+from nubomedia_vca_tpu_torch.ops import quant
 from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
-                                              integral_cuda)
+                                              integral_cuda, quant_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
 from nubomedia_vca_tpu_torch.utils.synth import face_clip, face_scene
@@ -215,3 +218,69 @@ def test_face_process_cuda_equals_cpu(cuda_device):
     as_t = lambda faces: [[(f.id, f.rect()) for f in fs] for fs in faces]
     assert as_t(got) == as_t(want)
     assert sum(len(f) for f in got) > 0
+
+
+@pytest.mark.parametrize("n", [1, 3, 1023, 1025, 2**20 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_quant_kernels_equal_plain_versions(cuda_device, n, offset):
+    """Both quantizers, exactly (values and scale), on odd sizes and on a
+    view whose start is not 16-byte aligned (the kernel's scalar path)."""
+    x = torch.from_numpy(np.random.RandomState(n).randn(n + 1).astype(
+        np.float32) * 3).to(cuda_device)[offset:offset + n]
+    before = quant_cuda.quantize_int8.launches
+    got = quant_cuda.quantize_int8(x)
+    assert quant_cuda.quantize_int8.launches == before + 1
+    want = quant.quantize_int8_reference(x)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for seed in (0, 12345):
+        before = quant_cuda.quantize_int8_stochastic.launches
+        got = quant_cuda.quantize_int8_stochastic(x, seed)
+        assert quant_cuda.quantize_int8_stochastic.launches == before + 1
+        want = quant.quantize_int8_stochastic_reference(x, seed)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_quant_kernel_on_all_zero_tensor(cuda_device):
+    x = torch.zeros((3, 77), device=cuda_device)
+    q, s = quant_cuda.quantize_int8(x)
+    assert not q.any()
+    assert s.item() == quant.quantize_int8_reference(x.cpu())[1].item()
+
+
+def test_int8_detector_cuda_equals_cpu(cuda_device):
+    """Every layer's int8 tensor and scale, the forward's output and the
+    tracked faces equal the CPU run's, at 720p."""
+    clip = face_clip(8, 1280, 720, seed=11)
+    gpu = QuantizedCnnFaceDetector((1280, 720), device=cuda_device)
+    cpu = QuantizedCnnFaceDetector((1280, 720), device="cpu")
+    canvas = cpu.letterbox(torch.from_numpy(clip))
+    taps_g, taps_c = [], []
+    before = quant_cuda.quantize_int8.launches
+    pred_g = gpu.model(canvas.to(cuda_device), taps_g)
+    assert quant_cuda.quantize_int8.launches == before + 7
+    pred_c = cpu.model(canvas, taps_c)
+    for i, ((_, qg, sg), (_, qc, sc)) in enumerate(zip(taps_g, taps_c)):
+        assert torch.equal(qg.cpu(), qc), f"layer {i}"
+        assert sg.item() == sc.item(), f"layer {i} scale"
+    assert torch.equal(pred_g.cpu(), pred_c)
+    as_t = lambda faces: [[(f.id, f.rect()) for f in fs] for fs in faces]
+    for b in (clip[:4], clip[4:]):
+        got = as_t(gpu.process(b))
+        assert got == as_t(cpu.process(b))
+    assert sum(len(f) for f in got) > 0
+
+
+def test_bf16_detector_cuda_matches_cpu(cuda_device):
+    """cuDNN and the CPU sum the bf16 convs in another order: the output
+    agrees within the tolerance the JAX comparison uses, the faces
+    exactly on this clip."""
+    clip = face_clip(4, 1280, 720, seed=11)
+    gpu = CnnFaceDetector((1280, 720), device=cuda_device)
+    cpu = CnnFaceDetector((1280, 720), device="cpu")
+    canvas = cpu.letterbox(torch.from_numpy(clip))
+    err = (gpu.model(canvas.to(cuda_device)).cpu() - cpu.model(canvas)).abs()
+    assert float(err.max()) <= 0.0625
+    for g, w in zip(gpu.detect_boxes(clip), cpu.detect_boxes(clip)):
+        assert np.array_equal(g, w)

@@ -20,9 +20,10 @@ from nubomedia_vca_tpu.models.face import FaceDetector as JaxFaceDetector
 from nubomedia_vca_tpu.models.face import (FaceDetectorConfig as
                                            JaxFaceDetectorConfig)
 from nubomedia_vca_tpu_torch.models.base import bucket_pad
-from nubomedia_vca_tpu_torch.models import (EyeDetector, FaceDetector,
-                                           FaceDetectorConfig, MouthDetector,
-                                           NoseDetector)
+from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EyeDetector,
+                                           FaceDetector, FaceDetectorConfig,
+                                           MouthDetector, NoseDetector,
+                                           QuantizedCnnFaceDetector)
 from nubomedia_vca_tpu_torch.utils.synth import face_clip
 
 torch.set_num_threads(2)
@@ -94,27 +95,28 @@ def test_reconfigure_keeps_tracks_and_swaps_engine(clips):
 
 
 def test_port_imports_no_jax():
-    """Importing the port's face path and part chain, its kernel wrappers
-    and chip_smoke.py leaves jax and the JAX package out of sys.modules."""
+    """Importing every module of the port (found by pkgutil.walk_packages,
+    so a new module is covered without listing it) and chip_smoke.py
+    leaves jax and the JAX package out of sys.modules."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import chip_smoke\n"
-        "import nubomedia_vca_tpu_torch.models\n"
-        "import nubomedia_vca_tpu_torch.models.eye\n"
-        "import nubomedia_vca_tpu_torch.models.mouth\n"
-        "import nubomedia_vca_tpu_torch.models.nose\n"
-        "import nubomedia_vca_tpu_torch.ops.cuda.dense_cuda\n"
-        "import nubomedia_vca_tpu_torch.ops.cuda.dense_level_cuda\n"
-        "import nubomedia_vca_tpu_torch.ops.cuda.integral_cuda\n"
+        "import nubomedia_vca_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'nubomedia_vca_tpu_torch.models.quant' in names, names\n"
+        "assert 'nubomedia_vca_tpu_torch.ops.cuda.quant_cuda' in names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nubomedia_vca_tpu')]\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().split()[0] == "ok"
 
 
 def test_cuda_request_raises_without_cuda():
@@ -125,7 +127,9 @@ def test_cuda_request_raises_without_cuda():
 
 
 @pytest.mark.parametrize("detector", [FaceDetector, NoseDetector,
-                                      MouthDetector, EyeDetector])
+                                      MouthDetector, EyeDetector,
+                                      CnnFaceDetector,
+                                      QuantizedCnnFaceDetector])
 def test_entry_points_default_to_cuda(detector):
     """Without a device argument every detector runs on the card: on a host
     without CUDA it raises instead of running on the CPU."""
