@@ -13,10 +13,12 @@ Phases, each printing its findings, any failure ending the run non-zero:
 3. kernels vs plain versions, exactly, on the same CUDA tensors:
    the pyramid dense kernel on B=64 synthetic 1280x720 (and 640x480) face
    work images and noise (level images, vnf, alive); at the part chain's
-   320x180, the tilted level kernel on every level of the mouth's and eyes'
-   tilted route (ii, iit, vnf, alive), the row-strip kernel on the nose's
-   four strip levels and with one strip on a pyramid-sized level (vnf,
-   alive), and the integral kernel on the six large tilted levels; the
+   320x180, the tilted kernels (table pass, tilted table, tiled
+   evaluation) on every level of the mouth and both eyes, 320x180
+   included (ii, iit, vnf, alive), the tilted-table kernel alone against
+   the image's plain tilted table and the integral kernel alone on the
+   same levels, the row-strip kernel on the nose's four strip levels and
+   with one strip on a pyramid-sized level (vnf, alive); the
    int8 quantizer on the seven layer inputs of a B=64 720p int8 forward
    and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all zeros), the
    stochastic quantizer on the conv1 input for two seeds (values, scale,
@@ -46,8 +48,13 @@ Phases, each printing its findings, any failure ending the run non-zero:
    shapes and this run's data, and a PyTorch call computing the same
    function where there is one (the ``torch.cumsum`` pair for the integral
    kernel, ``abs().amax()`` + ``torch.quantize_per_tensor`` for the int8
-   quantizer); the face path's and the learned detectors' device ms per
-   batch; each detector's ``process()`` frames/s at B=64 720p.
+   quantizer); the tilted dense phase over the right eye's 18 levels that
+   the single-block kernel of earlier versions took, over all 24, and over
+   the six largest against the plain tilted table and dense phase that
+   took them before, each with the table pass's and the evaluation's
+   share; the face path's, the part detectors' and the learned detectors'
+   device ms per batch; each detector's ``process()`` frames/s at B=64
+   720p.
 
 The last lines are the kernel summary as JSON, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and
@@ -78,6 +85,8 @@ from nubomedia_vca_tpu_torch.ops import quant  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.cuda import (  # noqa: E402
     _build, dense_cuda, dense_level_cuda, integral_cuda, quant_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
+from nubomedia_vca_tpu_torch.ops.integral import (  # noqa: E402
+    tilted_from_integral, tilted_integral_image)
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
 from nubomedia_vca_tpu_torch.utils.synth import face_clip  # noqa: E402
@@ -102,6 +111,8 @@ KERNELS = {   # name → (launch counter, source, TPU kernel replaced)
     "dense_level_tilted": (dense_level_cuda.dense_level_tilted,
                            f"{CSRC}/dense_level.cu",
                            f"{PALLAS}/dense_pallas.py:221"),
+    "tilted_table": (dense_level_cuda.tilted_table, f"{CSRC}/dense_level.cu",
+                     f"{PALLAS}/dense_pallas.py:181"),
     "dense_level_strips": (dense_level_cuda.dense_level_strips,
                            f"{CSRC}/dense_level.cu",
                            f"{PALLAS}/dense_pallas.py:276"),
@@ -119,6 +130,9 @@ KERNELS = {   # name → (launch counter, source, TPU kernel replaced)
 # launches on the paths are 0; phase 3 holds it to its plain version.
 OFF_PATH = {"quantize_int8_stochastic"}
 DETECTORS = (NoseDetector, MouthDetector, EyeDetector)
+# tilted levels per part-path batch at 720p: the smile's 23, the two eyes'
+# 24 each
+TILTED_LEVELS = {"NoseDetector": 0, "MouthDetector": 23, "EyeDetector": 48}
 
 
 def phase(name: str) -> None:
@@ -259,16 +273,19 @@ def part_engines(dev) -> dict:
 
 
 def check_level_kernels(dev, dets, part_frames) -> dict[str, float]:
-    """Tilted, strip and integral kernels vs their plain versions on the
-    part chain's levels; → max |err| per kernel."""
+    """Tilted, tilted-table, strip and integral kernels vs their plain
+    versions on the part chain's levels; → max |err| per kernel."""
     work = work_images(part_frames, (320, 180), dev)
     noise = torch.from_numpy(np.random.RandomState(6).randint(
         0, 256, work.shape, np.uint8)).to(dev)
     err = {"dense_level_tilted": 0.0, "dense_level_strips": 0.0,
-           "integral_tables": 0.0}
+           "integral_tables": 0.0, "tilted_table": 0.0}
     tilted = [(n, e) for d in dets.values()
               for n, e in d.part_engines.items() if e._uses_tilt]
+    n_levels = 0
     for name, eng in tilted:
+        if sorted(eng._level_plans) != list(range(len(eng.levels))):
+            raise AssertionError(f"{name}: a level is off the tilted route")
         n_alive = 0
         for x in (work, noise):
             for li, plan in eng._level_plans.items():
@@ -281,23 +298,32 @@ def check_level_kernels(dev, dets, part_frames) -> dict[str, float]:
                     err["dense_level_tilted"] = max(
                         err["dense_level_tilted"],
                         assert_equal(g, w, f"{name} level {li} {what}"))
-                n_alive += int(got[3].sum())
-            for li in (li for li, r in enumerate(eng.routes)
-                       if r == "tables"):
-                l = eng.levels[li]
-                img = resize_linear_exact(x, (l.sw, l.sh))
-                got = integral_cuda.integral_tables(img)
-                want = integral_cuda.integral_tables_reference(img)
-                for g, w, what in zip(got, want, ("ii", "sq")):
+                ii, sq = integral_cuda.integral_tables(img)
+                for g, w, what in zip(
+                        (ii, sq), integral_cuda.integral_tables_reference(img),
+                        ("ii", "sq")):
                     err["integral_tables"] = max(
                         err["integral_tables"],
                         assert_equal(g, w, f"{name} level {li} {what}"))
+                err["tilted_table"] = max(err["tilted_table"], assert_equal(
+                    dense_level_cuda.tilted_table(ii),
+                    tilted_integral_image(img),
+                    f"{name} level {li} tilted table"))
+                n_alive += int(got[3].sum())
+        n_levels += len(eng.levels)
+        l0, p0 = eng.levels[0], eng._level_plans[0]
         smem = max(p.smem_bytes for p in eng._level_plans.values())
-        print(f"tilted kernel ({name}, {len(eng._level_plans)} levels "
-              f"181x102 and smaller, smem up to {smem} B) and integral "
-              f"kernel ({eng.routes.count('tables')} levels 320x180 .. "
-              f"199x112), B={BATCH} faces + noise: == plain; alive windows "
-              f"{n_alive}")
+        print(f"tilted kernels ({name}, {len(eng.levels)} levels "
+              f"{l0.sw}x{l0.sh} .. {eng.levels[-1].sw}x{eng.levels[-1].sh}; "
+              f"{p0.tile_ny}x{p0.tile_nx}-window tiles, {p0.n_tiles} at "
+              f"{l0.sw}x{l0.sh}, evaluation smem up to {smem} B), B={BATCH} "
+              "faces + noise: table pass + tiled evaluation == plain (ii, "
+              "iit, vnf, alive), integral kernel == plain (ii, sq), "
+              "tilted-table kernel "
+              f"== tilted_integral_image; alive windows {n_alive}")
+    print(f"tilted kernels: {n_levels} tilted levels, max |err| "
+          f"{err['dense_level_tilted']}, tilted table "
+          f"{err['tilted_table']}, integral {err['integral_tables']}")
     nose = dets["NoseDetector"].part_engines["nose"]
     plans = dict(nose._level_plans)
     one = dense_level_cuda.DenseLevelPlan.make(
@@ -421,8 +447,9 @@ def predicted_launches(det) -> dict[str, int]:
     return {
         "pyramid_dense_phase": sum(e._plan is not None for e in engines),
         "dense_level_tilted": sum(e.routes.count("tilted") for e in engines),
+        "tilted_table": sum(e.routes.count("tilted") for e in engines),
         "dense_level_strips": sum(e.routes.count("strips") for e in engines),
-        "integral_tables": sum(e.routes.count("tables") for e in engines),
+        "integral_tables": sum(e.routes.count("tilted") for e in engines),
         "quantize_int8": 0,
         "quantize_int8_stochastic": 0,
     }
@@ -445,6 +472,9 @@ def part_path(dets, dev) -> dict[str, int]:
               f"launches {counts} (routes predict {want})")
         if counts != want:
             raise AssertionError(f"{name}: launches differ from the routes")
+        if want["dense_level_tilted"] != TILTED_LEVELS[name] * PART_BATCHES:
+            raise AssertionError(f"{name}: expected every level of its "
+                                 "tilted engines on the tilted kernels")
         for k, v in counts.items():
             total[k] += v
         cpu = type(det)(FRAME, device="cpu")
@@ -597,6 +627,114 @@ def time_quant(dev, gpu, xs, out) -> None:
           f"({b_by}); no PyTorch call rounds stochastically [{gpu}]")
 
 
+def time_tilted(gpu, eye, levels) -> dict[str, dict]:
+    """The tilted dense phase on the right eye's levels of the B=64 batch
+    at 320x180: (a) the 18 levels (181x102 .. 22x20) that the single-block
+    kernel of earlier versions took; (b) all 24; (c) the six largest
+    (320x180 .. 199x112) against their route before, the integral kernel
+    and the plain tilted table and dense phase on the card. Each with its
+    plain version, its bound, and the shares of the table pass (integral
+    kernel + tilted table) and of the evaluation kernel; the tilted-table
+    kernel alone over the 24 levels."""
+    plans, tabs = eye._level_plans, eye._tables
+    lis_all = list(levels)
+    tables = {li: (ii, sq, dense_level_cuda.tilted_table(ii))
+              for li in lis_all
+              for ii, sq in [integral_cuda.integral_tables(levels[li])]}
+
+    def dense_phase(lis):
+        return lambda: [dense_level_cuda.dense_level_tilted(levels[li],
+                                                            plans[li])
+                        for li in lis]
+
+    def table_pass(lis):
+        return lambda: [dense_level_cuda.tilted_table(
+            integral_cuda.integral_tables(levels[li])[0]) for li in lis]
+
+    def evaluation(lis):
+        return lambda: [dense_level_cuda._tilted_eval(*tables[li], plans[li])
+                        for li in lis]
+
+    def old_route(lis):
+        def run():
+            for li in lis:
+                l = eye.levels[li]
+                ii, sq = integral_cuda.integral_tables(levels[li])
+                tabs.evaluate(ii, sq, tilted_integral_image(levels[li]),
+                              l.ny, l.nx, l.ystep)
+        return run
+
+    out: dict[str, dict] = {}
+    for tag, lis, what in (
+            ("a", lis_all[6:], "18 levels 181x102 .. 22x20 (the "
+             "single-block kernel's before)"),
+            ("b", lis_all, "all 24 levels 320x180 .. 22x20"),
+            ("c", lis_all[:6], "6 largest levels 320x180 .. 199x112")):
+        k, p, runs = in_turns(dense_phase(lis), lambda: [
+            dense_level_cuda.dense_level_reference(levels[li], plans[li])
+            for li in lis], 20, 2)
+        res = dense_phase(lis)()
+        n_bytes = sum(levels[li].numel() + 8 * ii.numel() + 5 * vnf.numel()
+                      for li, (ii, _, vnf, _) in zip(lis, res))
+        # + per table element: the sum, squared-sum and tilted tables (12)
+        n_ops = sum(dense_ops(tabs, vnf, alive) + 12.0 * ii.numel()
+                    for ii, _, vnf, alive in res)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        t_ms = cuda_ms(table_pass(lis), 20)
+        i_ms = cuda_ms(lambda: [integral_cuda.integral_tables(levels[li])
+                                for li in lis], 20)
+        e_ms = cuda_ms(evaluation(lis), 20)
+        note = ""
+        if tag == "c":
+            o_k, o_ms, oruns = in_turns(dense_phase(lis), old_route(lis), 20,
+                                        3)
+            note = (f"; before: integral kernel + plain tilted table and "
+                    f"dense phase {o_ms:.4f} ms (in turns with the kernels' "
+                    f"{o_k:.4f} ms; runs {oruns})")
+        if tag == "b":
+            out["dense_level_tilted"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                             bound_by=b_by, library_ms=None)
+        print(f"time: tilted dense phase ({tag}) {k:.4f} ms per B={BATCH} "
+              f"batch over the right eye's {what}; runs {runs}; plain "
+              f"{p:.4f} ms; bound {b_ms:.4f} ms ({b_by}); table pass "
+              f"{t_ms:.4f} ms (integral kernel {i_ms:.4f}, tilted table "
+              f"{t_ms - i_ms:.4f}), evaluation {e_ms:.4f} ms{note} "
+              f"[{gpu}]")
+
+    k, p, runs = in_turns(
+        lambda: [dense_level_cuda.tilted_table(tables[li][0])
+                 for li in lis_all],
+        lambda: [tilted_from_integral(tables[li][0]) for li in lis_all],
+        50, 10)
+    n_el = sum(tables[li][0].numel() for li in lis_all)
+    # ii read once and the tilted table written once; per element the
+    # difference of two rows and three adds
+    b_ms, b_by = bound(8.0 * n_el, 4.0 * n_el)
+    out["tilted_table"] = dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=None)
+    print(f"time: tilted-table kernel {k:.4f} ms per B={BATCH} batch over "
+          f"the right eye's 24 levels; runs {runs}; plain {p:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}); no PyTorch call builds a tilted table "
+          f"[{gpu}]")
+    return out
+
+
+def part_device_pass(det, gray):
+    """The part detector's device pass on device-resident frames: both
+    images, the face pass with grouping, each part engine with candidate
+    compaction (``_device_pass`` without the host copies)."""
+    def run():
+        face = equalize_hist(resize_linear_exact(gray,
+                                                 (det.face_w, det.face_h)))
+        part = equalize_hist(resize_linear_exact(gray,
+                                                 (det.part_w, det.part_h)))
+        fe = det.face_engine
+        fe.group_device(fe.detect_raw(face), det.FACE_MIN_NEIGHBORS)
+        return [eng.compact_raw(eng.detect_raw(part))
+                for eng in det.part_engines.values()]
+    return run
+
+
 def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
     out: dict[str, dict] = {}
     # pyramid kernel: the face path's 7 levels at 160x90
@@ -625,54 +763,36 @@ def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
     levels = {li: resize_linear_exact(part, (eye.levels[li].sw,
                                              eye.levels[li].sh))
               for li in range(len(eye.levels))}
-    tplans = eye._level_plans
+    out.update(time_tilted(gpu, eye, levels))
+    all_lis = list(levels)
+    for what, lis in (("the 6 largest tilted levels (320x180 .. 199x112), "
+                       "comparable with earlier runs", all_lis[:6]),
+                      ("all 24 tilted levels (its launches on the path)",
+                       all_lis)):
+        k, p, runs = in_turns(
+            lambda: [integral_cuda.integral_tables(levels[li]) for li in lis],
+            lambda: [integral_cuda.integral_tables_reference(levels[li])
+                     for li in lis], 50, 10)
 
-    def tilted_kernel():
-        return [dense_level_cuda.dense_level_tilted(levels[li], pl)
-                for li, pl in tplans.items()]
+        def cumsum_pair():
+            for li in lis:
+                x = levels[li].to(torch.int32)
+                torch.cumsum(torch.cumsum(x, -1, dtype=torch.int32), -2,
+                             dtype=torch.int32)
+                torch.cumsum(torch.cumsum(x * x, -1, dtype=torch.int32), -2,
+                             dtype=torch.int32)
 
-    k, p, runs = in_turns(tilted_kernel, lambda: [
-        dense_level_cuda.dense_level_reference(levels[li], pl)
-        for li, pl in tplans.items()], 20, 3)
-    res = tilted_kernel()
-    n_bytes = sum(levels[li].numel() + 8 * ii.numel() + 5 * vnf.numel()
-                  for li, (ii, _, vnf, _) in zip(tplans, res))
-    # + per table element: the sum, squared-sum and tilted tables (12)
-    n_ops = sum(dense_ops(eye._tables, vnf, alive) + 12.0 * ii.numel()
-                for ii, _, vnf, alive in res)
-    b_ms, b_by = bound(n_bytes, n_ops)
-    out["dense_level_tilted"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=None)
-    print(f"time: tilted level kernel {k:.4f} ms per B={BATCH} batch over "
-          f"the right eye's {len(tplans)} tilted levels (181x102 .. 22x20; "
-          f"runs {runs}); bound {b_ms:.4f} ms ({b_by}) [{gpu}]")
-
-    tables_lis = [li for li, r in enumerate(eye.routes) if r == "tables"]
-    k, p, runs = in_turns(
-        lambda: [integral_cuda.integral_tables(levels[li])
-                 for li in tables_lis],
-        lambda: [integral_cuda.integral_tables_reference(levels[li])
-                 for li in tables_lis], 50, 50)
-
-    def cumsum_pair():
-        for li in tables_lis:
-            x = levels[li].to(torch.int32)
-            torch.cumsum(torch.cumsum(x, -1, dtype=torch.int32), -2,
-                         dtype=torch.int32)
-            torch.cumsum(torch.cumsum(x * x, -1, dtype=torch.int32), -2,
-                         dtype=torch.int32)
-
-    lib_ms = cuda_ms(cumsum_pair, 50)
-    n_bytes = sum(levels[li].numel() * (1 + 8) + 8 * BATCH * (
-        levels[li].shape[1] + levels[li].shape[2] + 1) for li in tables_lis)
-    n_ops = sum(6.0 * levels[li].numel() for li in tables_lis)
-    b_ms, b_by = bound(n_bytes, n_ops)
-    out["integral_tables"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=lib_ms)
-    print(f"time: integral kernel {k:.4f} ms per B={BATCH} batch over the "
-          f"6 large tilted levels (320x180 .. 199x112; runs {runs}); "
-          f"torch.cumsum pair {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
-          f"({b_by}) [{gpu}]")
+        lib_ms = cuda_ms(cumsum_pair, 50)
+        n_bytes = sum(levels[li].numel() * (1 + 8) + 8 * BATCH * (
+            levels[li].shape[1] + levels[li].shape[2] + 1) for li in lis)
+        n_ops = sum(6.0 * levels[li].numel() for li in lis)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        out["integral_tables"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=lib_ms)
+        print(f"time: integral kernel {k:.4f} ms per B={BATCH} batch over "
+              f"the right eye's {what}; runs {runs}; plain {p:.4f} ms; "
+              f"torch.cumsum pair {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}) [{gpu}]")
 
     nose = dets["NoseDetector"].part_engines["nose"]
     splans = nose._level_plans
@@ -708,6 +828,12 @@ def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
     print(f"time: face device path (resize, equalize, cascade, grouping on "
           f"device-resident frames) {dev_ms:.4f} ms/batch, "
           f"{BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} 720p [{gpu}]")
+    for name, det in dets.items():
+        dev_ms = cuda_ms(part_device_pass(det, gray), 5)
+        print(f"time: {name} device pass (both images, face pass, part "
+              f"engines, compaction on device-resident frames) {dev_ms:.4f} "
+              f"ms/batch, {BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} "
+              f"720p [{gpu}]")
     cnn_dets = [cls(FRAME, device=dev)
                 for cls in (QuantizedCnnFaceDetector, CnnFaceDetector)]
     for det in cnn_dets:

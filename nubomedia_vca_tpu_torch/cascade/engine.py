@@ -7,8 +7,8 @@ Per batch of work images:
 * **Dense phase**: for every pyramid level, the level image, integral
   tables, variance normalization and the first few stages (the dense
   block) on the level's ystep-strided window grid. Each level takes one of
-  four routes, chosen from its geometry alone (``_route``), so the CPU runs
-  the same control flow as the card, each kernel through its plain
+  three routes, chosen from its geometry alone (``_route``), so the CPU
+  runs the same control flow as the card, each kernel through its plain
   PyTorch version:
 
   - ``pyramid``: non-tilted levels whose two tables fit one block's shared
@@ -16,12 +16,10 @@ Per batch of work images:
     (which also makes the level images);
   - ``strips``: larger non-tilted levels, resized here, then
     ``dense_level_cuda.dense_level_strips``;
-  - ``tilted``: levels of tilted cascades whose three tables fit, resized
-    here, then ``dense_level_cuda.dense_level_tilted``, which also emits
-    the sum and tilted tables;
-  - ``tables``: larger tilted levels: ``integral_cuda.integral_tables``,
-    then the plain-torch tilted table and dense phase (the JAX engine's
-    XLA path, ``cascade/engine.py:537-585``).
+  - ``tilted``: every level of a tilted cascade, resized here, then
+    ``dense_level_cuda.dense_level_tilted`` (the tables in device memory,
+    then a tiled evaluation whose shared memory a tile sets, not the
+    level), which also emits the sum and tilted tables.
 * **Compaction**: surviving windows are compacted to a static per-level
   capacity with ``torch.topk`` (earliest index first); a per-frame overflow
   flag reports survivors beyond capacity.
@@ -67,10 +65,8 @@ from ..ops.cuda.dense_cuda import (MAX_SMEM_BYTES, DenseTables,
                                    pyramid_smem_bytes)
 from ..ops.cuda.dense_level_cuda import (DenseLevelPlan, dense_level_strips,
                                          dense_level_tilted, strip_plan,
-                                         tilted_smem_bytes)
-from ..ops.cuda.integral_cuda import integral_tables
+                                         tilted_fits)
 from ..ops.grouping import group_rectangles_torch
-from ..ops.integral import tilted_integral_image
 from ..ops.resize import resize_linear_exact
 from .pyramid import LevelSpec, compute_levels
 from .xml_loader import HaarCascade
@@ -235,9 +231,12 @@ class CascadeEngine:
         """The dense-phase route of level `l`, from its geometry alone (see
         the module docstring)."""
         if self._uses_tilt:
-            if tilted_smem_bytes(l) <= MAX_SMEM_BYTES:
+            if tilted_fits(l, self._tables):
                 return "tilted"
-            return "tables"
+            raise NotImplementedError(
+                f"level {l.sw}x{l.sh}: no dense kernel takes it (the tilted "
+                "kernels need a tile of windows and the tilted table's rows "
+                f"in {MAX_SMEM_BYTES} B of shared memory)")
         if pyramid_smem_bytes(l) <= MAX_SMEM_BYTES:
             return "pyramid"
         if strip_plan(l, self.cascade.window_h) is not None:
@@ -500,16 +499,10 @@ class CascadeEngine:
         l = self.levels[li]
         same = (l.sw, l.sh) == (self.image_w, self.image_h)
         img = gray if same else resize_linear_exact(gray, (l.sw, l.sh))
-        route = self.routes[li]
-        if route == "strips":
+        if self.routes[li] == "strips":
             vnf, alive = dense_level_strips(img, self._level_plans[li])
             return img, None, None, vnf, alive
-        if route == "tilted":
-            return (img, *dense_level_tilted(img, self._level_plans[li]))
-        ii, sq = integral_tables(img)
-        iit = tilted_integral_image(img)
-        vnf, alive = self._tables.evaluate(ii, sq, iit, l.ny, l.nx, l.ystep)
-        return img, ii, iit, vnf, alive
+        return (img, *dense_level_tilted(img, self._level_plans[li]))
 
     def _detect_impl(self, gray: torch.Tensor):
         """gray [B, H, W] uint8 → (boxes [B, TC, 4] i32, valid [B, TC] bool,

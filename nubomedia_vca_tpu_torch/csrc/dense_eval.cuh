@@ -83,6 +83,25 @@ __device__ __forceinline__ float feature_value(const uint32_t* iw,
   return val;
 }
 
+// Variance normalization of one window (iw, qw: its origin in the sum and
+// squared-sum tables of row length w1): writes vnf, returns whether the
+// window's variance passes.
+__device__ __forceinline__ bool norm_window(const uint32_t* iw,
+                                            const uint32_t* qw, int w1,
+                                            int norm_w, int norm_h,
+                                            float norm_area, float var_thr,
+                                            float* vnf_out) {
+  const float vf = static_cast<float>(
+      static_cast<int32_t>(rect_sum(iw, w1, 1, 1, norm_w, norm_h)));
+  // the sq-sum is read as uint32 and rounded to nearest, like the engine's
+  // bitcast-uint32 view
+  const float sqf = static_cast<float>(rect_sum(qw, w1, 1, 1, norm_w, norm_h));
+  const float nf = __fsub_rn(__fmul_rn(norm_area, sqf), __fmul_rn(vf, vf));
+  const bool valid = nf > var_thr;
+  *vnf_out = valid ? __frcp_rn(__fsqrt_rn(fmaxf(nf, 1e-20f))) : 1.0f;
+  return valid;
+}
+
 // One window: iw, qw, tw point at the window's origin in the sum, squared
 // sum and tilted tables (tw is not read unless kTilted), all of row length
 // w1. Returns alive; writes vnf.
@@ -92,14 +111,9 @@ __device__ __forceinline__ bool eval_window(const uint32_t* iw,
                                             const uint32_t* tw, int w1,
                                             DENSE_CASCADE_PARAMS,
                                             float* vnf_out) {
-  const float vf = static_cast<float>(
-      static_cast<int32_t>(rect_sum(iw, w1, 1, 1, norm_w, norm_h)));
-  // the sq-sum is read as uint32 and rounded to nearest, like the engine's
-  // bitcast-uint32 view
-  const float sqf = static_cast<float>(rect_sum(qw, w1, 1, 1, norm_w, norm_h));
-  const float nf = __fsub_rn(__fmul_rn(norm_area, sqf), __fmul_rn(vf, vf));
-  bool alive = nf > var_thr;
-  const float vnf = alive ? __frcp_rn(__fsqrt_rn(fmaxf(nf, 1e-20f))) : 1.0f;
+  float vnf;
+  bool alive =
+      norm_window(iw, qw, w1, norm_w, norm_h, norm_area, var_thr, &vnf);
 
   int k = 0;
   for (int s = 0; s < n_stages && alive; ++s) {

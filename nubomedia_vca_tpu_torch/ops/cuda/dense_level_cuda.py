@@ -4,22 +4,27 @@ ystep-strided window grid.
 
 Port of the TPU kernel ``build_dense_phase``
 (``nubomedia_vca_tpu/ops/pallas/dense_pallas.py:221``) in its two forms,
-both launched from ``csrc/dense_level.cu``:
+both in ``csrc/dense_level.cu``:
 
-* ``dense_level_tilted`` — the single-block kernel with the tilted table
-  (``pallas_call`` :329): one block per frame builds the sum, squared-sum
-  and tilted tables of the whole level in shared memory and emits the sum
-  and tilted tables for the survivor patch gather, with ``vnf`` and
-  ``alive``;
+* ``dense_level_tilted`` — the tilted form (``pallas_call`` :329), which
+  also emits the sum and tilted tables for the survivor patch gather. A
+  table pass in device memory, then a tiled evaluation: the sum and
+  squared-sum tables (``integral_cuda.integral_tables``), the tilted table
+  built from the sum table (``tilted_table``), then one block per (tile,
+  frame) that stages the tile's window of the three tables in shared
+  memory and evaluates its ``tile_ny`` x ``tile_nx`` strided windows.
+  Shared memory is sized by the tile, not by the level, so every level of
+  a tilted cascade takes it;
 * ``dense_level_strips`` — the row-strip kernel (``strip_kernel`` :276,
   ``pallas_call`` :300): non-tilted levels in strips of ``strip_gy``
   window rows with an (h0-1)-row halo, one block per (strip, frame); with
   one strip it is the non-tilted single block.
 
-``DenseLevelPlan`` holds a level's geometry and strip plan;
+``DenseLevelPlan`` holds a level's geometry and its strips or tiles;
 ``dense_level_reference`` is the plain PyTorch version of both forms (the
-strip form builds strip-local tables, exactly as the kernel does). A
-wrapper runs the plain version for a CPU tensor and launches the kernel
+strip form builds strip-local tables, and the tilted form evaluates tile by
+tile on the level's tables, exactly as the kernels cut the level). A
+wrapper runs the plain version for a CPU tensor and launches the kernels
 for a CUDA tensor, or raises; it never falls back.
 """
 
@@ -29,19 +34,78 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...cascade.pyramid import LevelSpec
-from ..integral import integral_image, sq_integral_image, tilted_integral_image
+from ..integral import (integral_image, sq_integral_image,
+                        tilted_from_integral, tilted_integral_image)
 from . import _build
-from .dense_cuda import (CASCADE_ARGTYPES, MAX_GRID_Y, MAX_SMEM_BYTES,
-                         DenseTables, device_index)
+from .dense_cuda import (CASCADE_ARGTYPES, MAX_GRID_Y, MAX_RECTS,
+                         MAX_SMEM_BYTES, DenseTables, device_index)
+from .integral_cuda import integral_tables
+
+# strided windows per evaluation tile (rows, columns): one thread per
+# window of a full tile (kEvalThreads in csrc/dense_level.cu)
+TILE = (16, 16)
+# a weak tree's record in the evaluation kernel (kTreeWords): its three
+# features of FEAT_WORDS, its 7 thresholds and leaves, its stage
+FEAT_WORDS = 2 + 5 * MAX_RECTS
+TREE_WORDS = 3 * FEAT_WORDS + 8
 
 
-def tilted_smem_bytes(l: LevelSpec) -> int:
-    """Shared memory of a level in the tilted kernel: sum, squared-sum and
-    tilted tables, 4 B per element each."""
-    return 3 * 4 * (l.sh + 1) * (l.sw + 1)
+def tile_shape(l: LevelSpec, tables: DenseTables,
+               tile: tuple[int, int] = TILE) -> tuple[int, int]:
+    """(rows, columns) of the tables that a full tile of level `l` stages
+    (a tile larger than the level is cut to it); the columns are the row
+    length of every staged tile of the level."""
+    step = l.ystep
+    return ((min(tile[0], l.ny) - 1) * step + tables.window_h + 1,
+            (min(tile[1], l.nx) - 1) * step + tables.window_w + 1)
+
+
+def tile_smem_bytes(l: LevelSpec, tables: DenseTables,
+                    tile: tuple[int, int] = TILE) -> int:
+    """Dynamic shared memory of a block of the evaluation kernel: a full
+    tile's window of the sum, squared-sum and tilted tables, and the
+    cascade's tree records and stage thresholds, 4 B per element each."""
+    rows, cols = tile_shape(l, tables, tile)
+    n_weak = len(tables.host["weak_i"])
+    return 4 * (3 * rows * cols + n_weak * TREE_WORDS + tables.n_dense)
+
+
+def tile_records(tables: DenseTables, pitch: int) -> np.ndarray:
+    """The dense block's weak trees as the evaluation kernel reads them, for
+    staged tiles of row length `pitch` → int32 [n_weak, TREE_WORDS]: per
+    tree its root, left and right features (n rects, tilted flag, the 4
+    corner offsets of each rect from the window's origin, the rects'
+    weights as float32 bits), then thr0, thrL, thrR, the left and right
+    leaves (float32 bits) and the stage. Both rect kinds are the signed
+    corner sum t[o0] - t[o1] - t[o2] + t[o3]."""
+    fi, fw = tables.host["feat_i"], tables.host["feat_w"]
+    feats = np.zeros((len(fi), FEAT_WORDS), np.int32)
+    for f, rec in enumerate(fi):
+        feats[f, :2] = rec[0], rec[-1]
+        for r in range(rec[0]):
+            x, y, w, h = (int(v) for v in rec[1 + 4 * r:5 + 4 * r])
+            corners = ([(y, x), (y + w, x + w), (y + h, x - h),
+                        (y + w + h, x + w - h)] if rec[-1] else
+                       [(y, x), (y, x + w), (y + h, x), (y + h, x + w)])
+            feats[f, 2 + 4 * r:6 + 4 * r] = [cy * pitch + cx
+                                             for cy, cx in corners]
+    feats[:, 2 + 4 * MAX_RECTS:] = fw.view(np.int32)
+    wi, wf = tables.host["weak_i"], tables.host["weak_f"]
+    return np.concatenate([feats[wi[:, 0]], feats[wi[:, 1]], feats[wi[:, 2]],
+                           wf.view(np.int32), wi[:, 3:]], axis=1)
+
+
+def tilted_fits(l: LevelSpec, tables: DenseTables,
+                max_smem: int = MAX_SMEM_BYTES,
+                tile: tuple[int, int] = TILE) -> bool:
+    """Whether the tilted kernels take level `l`: a block of the evaluation
+    kernel within `max_smem` bytes of shared memory."""
+    return tile_smem_bytes(l, tables, tile) <= max_smem
 
 
 def strip_plan(l: LevelSpec, win_h: int,
@@ -62,31 +126,45 @@ def strip_plan(l: LevelSpec, win_h: int,
 
 @dataclasses.dataclass(frozen=True)
 class DenseLevelPlan:
-    """One level of one engine for the level kernel: tilted (one block per
-    frame, the whole level) or row strips."""
+    """One level of one engine for the level kernels: tilted (tiles of
+    ``tile_ny`` x ``tile_nx`` strided windows, staged as ``tile_rows`` rows
+    of ``pitch`` table entries, and the tree records for that pitch) or row
+    strips."""
 
     level: LevelSpec
     tables: DenseTables
     tilted: bool
-    strip_gy: int       # window-origin rows per strip, a multiple of ystep
+    strip_gy: int       # strips: window-origin rows per strip (0 if tilted)
     n_strips: int
-    smem_bytes: int
+    tile_ny: int        # tilted: strided windows per tile (0 for strips)
+    tile_nx: int
+    tile_rows: int      # tilted: table rows and row length of a full tile
+    pitch: int
+    smem_bytes: int     # dynamic shared memory of one block
+    records: np.ndarray | None = dataclasses.field(default=None,
+                                                   compare=False)
+    _device: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
 
     @classmethod
     def make(cls, level: LevelSpec, tables: DenseTables, tilted: bool,
-             max_smem: int = MAX_SMEM_BYTES) -> "DenseLevelPlan":
-        """The level's plan; raises ValueError when its tables do not fit
-        `max_smem` (tilted: the whole level; otherwise a one-row strip)."""
+             max_smem: int = MAX_SMEM_BYTES,
+             tile: tuple[int, int] = TILE) -> "DenseLevelPlan":
+        """The level's plan; raises ValueError when a block's tables do not
+        fit `max_smem` (tilted: a tile and the tree records; otherwise a
+        one-row strip)."""
         h0 = tables.window_h
         if tilted:
-            smem = tilted_smem_bytes(level)
-            if smem > max_smem:
+            if not tilted_fits(level, tables, max_smem, tile):
                 raise ValueError(
-                    f"tilted level {level.sw}x{level.sh} needs {smem} B of "
-                    f"tables > {max_smem} B of shared memory")
-            # one strip of every grid row (a multiple of ystep, like any
-            # strip: the kernel counts a strip's grid rows as strip_gy/ystep)
-            return cls(level, tables, True, level.ny * level.ystep, 1, smem)
+                    f"tilted level {level.sw}x{level.sh}: a tile of "
+                    f"{tile[0]}x{tile[1]} windows needs "
+                    f"{tile_smem_bytes(level, tables, tile)} B > {max_smem} "
+                    "B of shared memory")
+            rows, pitch = tile_shape(level, tables, tile)
+            return cls(level, tables, True, 0, 0, tile[0], tile[1], rows,
+                       pitch, tile_smem_bytes(level, tables, tile),
+                       tile_records(tables, pitch))
         if tables.tilted:
             raise ValueError("the strip kernel takes non-tilted dense blocks")
         plan = strip_plan(level, h0, max_smem)
@@ -96,7 +174,7 @@ class DenseLevelPlan:
                 f"in {max_smem} B of shared memory")
         strip_gy, n_strips = plan
         rows = min(strip_gy + h0 - 1, level.sh)
-        return cls(level, tables, False, strip_gy, n_strips,
+        return cls(level, tables, False, strip_gy, n_strips, 0, 0, 0, 0,
                    8 * (rows + 1) * (level.sw + 1))
 
     def strips(self):
@@ -109,8 +187,70 @@ class DenseLevelPlan:
             yield (row0, min(self.strip_gy + h0 - 1, l.sh - row0),
                    iy1 - row0 // l.ystep)
 
+    def device_records(self, device: torch.device) -> torch.Tensor:
+        """The tree records on `device`, copied once."""
+        recs = self._device.get(device)
+        if recs is None:
+            recs = torch.from_numpy(self.records).to(device)
+            self._device[device] = recs
+        return recs
+
+    @property
+    def n_tiles(self) -> tuple[int, int]:
+        """Tiles down and across the level's window grid."""
+        l = self.level
+        return -(-l.ny // self.tile_ny), -(-l.nx // self.tile_nx)
+
+    def tiles(self):
+        """(first grid row, grid rows, first grid column, grid columns) of
+        each tile, in the order of the evaluation kernel's blocks; the last
+        tile of a row or column is ragged."""
+        l = self.level
+        n_ty, n_tx = self.n_tiles
+        for ty in range(n_ty):
+            iy0 = ty * self.tile_ny
+            for tx in range(n_tx):
+                ix0 = tx * self.tile_nx
+                yield (iy0, min(self.tile_ny, l.ny - iy0),
+                       ix0, min(self.tile_nx, l.nx - ix0))
+
 
 # ------------------------------------------------------------ plain version
+def _evaluate_tiles(plan: DenseLevelPlan, ii, sq, iit):
+    """The dense block tile by tile: each tile's window of the three
+    tables, rows iy0*step .. (iy0 + n_rows - 1)*step + h0 and the matching
+    columns, as the kernel stages it (zero-padded to a full tile, whose
+    extra windows are dropped), all tiles evaluated in one batch."""
+    l, tabs = plan.level, plan.tables
+    step, B = l.ystep, ii.shape[0]
+    R, C = plan.tile_rows, plan.pitch       # a full tile, cut to the level
+    ty, tx = min(plan.tile_ny, l.ny), min(plan.tile_nx, l.nx)
+    tiles = list(plan.tiles())
+
+    def staged(tab):
+        parts = []
+        for iy0, n_rows, ix0, n_cols in tiles:
+            rows = (n_rows - 1) * step + tabs.window_h + 1
+            cols = (n_cols - 1) * step + tabs.window_w + 1
+            r0, c0 = iy0 * step, ix0 * step
+            parts.append(F.pad(tab[:, r0:r0 + rows, c0:c0 + cols],
+                               (0, C - cols, 0, R - rows)))
+        return torch.stack(parts, 1).reshape(B * len(tiles), R, C)
+
+    vnf_t, alive_t = tabs.evaluate(staged(ii), staged(sq), staged(iit),
+                                   ty, tx, step)
+    vnf_t = vnf_t.reshape(B, len(tiles), ty, tx)
+    alive_t = alive_t.reshape(vnf_t.shape)
+    vnf = torch.empty((B, l.ny, l.nx), dtype=torch.float32, device=ii.device)
+    alive = torch.empty((B, l.ny, l.nx), dtype=torch.uint8, device=ii.device)
+    for t, (iy0, n_rows, ix0, n_cols) in enumerate(tiles):
+        vnf[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = vnf_t[:, t, :n_rows,
+                                                           :n_cols]
+        alive[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = alive_t[:, t, :n_rows,
+                                                               :n_cols]
+    return vnf, alive
+
+
 def dense_level_reference(img: torch.Tensor, plan: DenseLevelPlan):
     """Plain PyTorch version of both forms, on ``img``'s device → tilted:
     (ii, iit, vnf, alive); strips: (None, None, vnf, alive)."""
@@ -118,8 +258,7 @@ def dense_level_reference(img: torch.Tensor, plan: DenseLevelPlan):
     l, tabs = plan.level, plan.tables
     if plan.tilted:
         ii, iit = integral_image(img), tilted_integral_image(img)
-        vnf, alive = tabs.evaluate(ii, sq_integral_image(img), iit,
-                                   l.ny, l.nx, l.ystep)
+        vnf, alive = _evaluate_tiles(plan, ii, sq_integral_image(img), iit)
         return ii, iit, vnf, alive
     vnfs, alives = [], []
     for row0, rows, n_rows in plan.strips():
@@ -131,7 +270,7 @@ def dense_level_reference(img: torch.Tensor, plan: DenseLevelPlan):
     return None, None, torch.cat(vnfs, 1), torch.cat(alives, 1)
 
 
-# ------------------------------------------------------------------ kernel
+# ------------------------------------------------------------------ kernels
 def _check_img(img: torch.Tensor, plan: DenseLevelPlan) -> None:
     l = plan.level
     if img.dtype != torch.uint8:
@@ -143,74 +282,134 @@ def _check_img(img: torch.Tensor, plan: DenseLevelPlan) -> None:
         raise ValueError("level image must be contiguous")
 
 
+def _check_frames(B: int) -> None:
+    if not 1 <= B <= MAX_GRID_Y:
+        raise ValueError(f"1 to {MAX_GRID_Y} frames per launch, got {B}")
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_LAUNCH_ARGTYPES = [
-    _I, _P, _I,                  # device, stream, tilted
-    _P, _I, _I, _I,              # img, B, sh, sw
-    _I, _I, _I,                  # step, nx, ny
-    _I, _I, _I,                  # strip_gy, n_strips, win_h
-    *CASCADE_ARGTYPES,
-    _I,                          # smem
-    _P, _P, _P, _P,              # ii_out, iit_out, vnf_out, alive_out
-]
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("dense_level")
-    lib.dense_level_launch.argtypes = _LAUNCH_ARGTYPES
-    lib.dense_level_launch.restype = ctypes.c_int
+    lib.dense_strips_launch.argtypes = [
+        _I, _P,                      # device, stream
+        _P, _I, _I, _I,              # img, B, sh, sw
+        _I, _I, _I,                  # step, nx, ny
+        _I, _I, _I,                  # strip_gy, n_strips, win_h
+        *CASCADE_ARGTYPES,
+        _I,                          # smem
+        _P, _P,                      # vnf_out, alive_out
+    ]
+    lib.tilted_table_launch.argtypes = [
+        _I, _P,                      # device, stream
+        _P, _I, _I, _I,              # ii, B, H, W
+        _P,                          # iit_out
+    ]
+    lib.tilted_eval_launch.argtypes = [
+        _I, _P,                      # device, stream
+        _P, _P, _P,                  # ii, sq, iit
+        _I, _I, _I,                  # B, sh, sw
+        _I, _I, _I,                  # step, nx, ny
+        _I, _I, _I, _I,              # tile_ny, tile_nx, n_tiles_y, n_tiles_x
+        _I, _I, _I, _I,              # win_h, win_w, tile_rows, pitch
+        _P, _I, _P, _I,              # trees, n_weak, stage_thr, n_stages
+        _I, _I, ctypes.c_float, ctypes.c_float,  # norm_w, norm_h, area, var
+        _I,                          # smem
+        _P, _P,                      # vnf_out, alive_out
+    ]
+    for name in ("dense_strips_launch", "tilted_table_launch",
+                 "tilted_eval_launch"):
+        getattr(lib, name).restype = ctypes.c_int
     lib.dense_level_error_string.argtypes = [ctypes.c_int]
     lib.dense_level_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(img: torch.Tensor, plan: DenseLevelPlan):
-    l, B, dev = plan.level, img.shape[0], img.device
-    if not 1 <= B <= MAX_GRID_Y:
-        raise ValueError(f"1 to {MAX_GRID_Y} frames per launch, got {B}")
-    lib = _library()
-    ii = iit = None
-    if plan.tilted:
-        ii = torch.empty((B, l.sh + 1, l.sw + 1), dtype=torch.int32,
-                         device=dev)
-        iit = torch.empty_like(ii)
-    vnf = torch.empty((B, l.ny, l.nx), dtype=torch.float32, device=dev)
-    alive = torch.empty((B, l.ny, l.nx), dtype=torch.uint8, device=dev)
-    rc = lib.dense_level_launch(
-        device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
-        int(plan.tilted), img.data_ptr(), B, l.sh, l.sw, l.ystep, l.nx,
-        l.ny, plan.strip_gy, plan.n_strips, plan.tables.window_h,
-        *plan.tables.launch_args(dev), plan.smem_bytes,
-        ii.data_ptr() if ii is not None else None,
-        iit.data_ptr() if iit is not None else None,
-        vnf.data_ptr(), alive.data_ptr())
+def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.dense_level_error_string(rc).decode()
-        raise RuntimeError(f"dense_level kernel launch failed: {msg} ({rc})")
-    return ii, iit, vnf, alive
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
 
 
-def _dispatch(img: torch.Tensor, plan: DenseLevelPlan, counter):
+def _stream(dev: torch.device):
+    return device_index(dev), torch.cuda.current_stream(dev).cuda_stream
+
+
+def tilted_table(ii: torch.Tensor) -> torch.Tensor:
+    """Sum table [B, H+1, W+1] int32 → the tilted table of the same image
+    (``ops.integral.tilted_integral_image``), int32 of the same shape. A
+    CUDA tensor launches the tilted-table kernel (counted in
+    ``tilted_table.launches``) or raises; a CPU tensor runs the plain
+    version, ``ops.integral.tilted_from_integral``."""
+    if ii.dtype != torch.int32 or ii.ndim != 3 or min(ii.shape[1:]) < 2:
+        raise TypeError(f"sum table must be [B, H+1, W+1] int32 with H, W "
+                        f">= 1, got {ii.dtype} {tuple(ii.shape)}")
+    if not ii.is_contiguous():
+        raise ValueError("sum table must be contiguous")
+    if ii.device.type == "cpu":
+        return tilted_from_integral(ii)
+    if ii.device.type != "cuda":
+        raise ValueError(f"no tilted-table kernel for {ii.device}")
+    B, H, W = ii.shape[0], ii.shape[1] - 1, ii.shape[2] - 1
+    _check_frames(B)
+    lib = _library()
+    iit = torch.empty_like(ii)
+    _raise_on(lib, lib.tilted_table_launch(
+        *_stream(ii.device), ii.data_ptr(), B, H, W, iit.data_ptr()),
+        "tilted_table")
+    tilted_table.launches += 1
+    return iit
+
+
+def _tilted_eval(ii, sq, iit, plan: DenseLevelPlan):
+    """The evaluation kernel on a level's three tables (CUDA tensors) →
+    (vnf, alive); one launch, not counted (``dense_level_tilted`` counts
+    its calls)."""
+    l, tabs, B, dev = plan.level, plan.tables, ii.shape[0], ii.device
+    for t in (ii, sq, iit):
+        if (t.dtype != torch.int32 or tuple(t.shape) != (B, l.sh + 1, l.sw + 1)
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError("tables must be contiguous [B, sh+1, sw+1] "
+                             "int32 on one device")
+    _check_frames(B)
+    lib = _library()
+    n_ty, n_tx = plan.n_tiles
+    vnf = torch.empty((B, l.ny, l.nx), dtype=torch.float32, device=dev)
+    alive = torch.empty((B, l.ny, l.nx), dtype=torch.uint8, device=dev)
+    _raise_on(lib, lib.tilted_eval_launch(
+        *_stream(dev), ii.data_ptr(), sq.data_ptr(),
+        iit.data_ptr(), B, l.sh, l.sw, l.ystep, l.nx, l.ny, plan.tile_ny,
+        plan.tile_nx, n_ty, n_tx, tabs.window_h, tabs.window_w,
+        plan.tile_rows, plan.pitch, plan.device_records(dev).data_ptr(),
+        len(plan.records), tabs.device_tables(dev)["stage_thr"].data_ptr(),
+        tabs.n_dense, tabs.norm_w, tabs.norm_h, tabs.norm_area, tabs.var_thr,
+        plan.smem_bytes, vnf.data_ptr(), alive.data_ptr()), "tilted_eval")
+    return vnf, alive
+
+
+def dense_level_tilted(img: torch.Tensor, plan: DenseLevelPlan):
+    """Level image [B,sh,sw] uint8 → (ii, iit [B,sh+1,sw+1] int32, vnf
+    [B,ny,nx] float32, alive [B,ny,nx] uint8). On a CUDA tensor, in order on
+    the current stream: ``integral_tables`` (counted there),
+    ``tilted_table`` (counted there) and the tiled evaluation kernel
+    (counted in ``dense_level_tilted.launches``, one per call); on a CPU
+    tensor the plain version."""
+    if not plan.tilted:
+        raise ValueError("plan is for the strip kernel")
     _check_img(img, plan)
     if img.device.type == "cpu":
         return dense_level_reference(img, plan)
     if img.device.type != "cuda":
         raise ValueError(f"no dense level kernel for {img.device}")
-    out = _launch(img, plan)
-    counter.launches += 1
-    return out
-
-
-def dense_level_tilted(img: torch.Tensor, plan: DenseLevelPlan):
-    """Level image [B,sh,sw] uint8 → (ii, iit [B,sh+1,sw+1] int32, vnf
-    [B,ny,nx] float32, alive [B,ny,nx] uint8) with the tilted kernel
-    (counted in ``dense_level_tilted.launches``) on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if not plan.tilted:
-        raise ValueError("plan is for the strip kernel")
-    return _dispatch(img, plan, dense_level_tilted)
+    _check_frames(img.shape[0])
+    ii, sq = integral_tables(img)
+    iit = tilted_table(ii)
+    vnf, alive = _tilted_eval(ii, sq, iit, plan)
+    dense_level_tilted.launches += 1
+    return ii, iit, vnf, alive
 
 
 def dense_level_strips(img: torch.Tensor, plan: DenseLevelPlan):
@@ -219,9 +418,26 @@ def dense_level_strips(img: torch.Tensor, plan: DenseLevelPlan):
     ``dense_level_strips.launches``) on a CUDA tensor, the plain version on
     a CPU tensor."""
     if plan.tilted:
-        raise ValueError("plan is for the tilted kernel")
-    return _dispatch(img, plan, dense_level_strips)[2:]
+        raise ValueError("plan is for the tilted kernels")
+    _check_img(img, plan)
+    if img.device.type == "cpu":
+        return dense_level_reference(img, plan)[2:]
+    if img.device.type != "cuda":
+        raise ValueError(f"no dense level kernel for {img.device}")
+    l, B, dev = plan.level, img.shape[0], img.device
+    _check_frames(B)
+    lib = _library()
+    vnf = torch.empty((B, l.ny, l.nx), dtype=torch.float32, device=dev)
+    alive = torch.empty((B, l.ny, l.nx), dtype=torch.uint8, device=dev)
+    _raise_on(lib, lib.dense_strips_launch(
+        *_stream(dev), img.data_ptr(), B, l.sh, l.sw, l.ystep, l.nx, l.ny,
+        plan.strip_gy, plan.n_strips, plan.tables.window_h,
+        *plan.tables.launch_args(dev), plan.smem_bytes, vnf.data_ptr(),
+        alive.data_ptr()), "dense_strips")
+    dense_level_strips.launches += 1
+    return vnf, alive
 
 
 dense_level_tilted.launches = 0
 dense_level_strips.launches = 0
+tilted_table.launches = 0

@@ -1,9 +1,9 @@
 """Sum and squared-sum integral tables in one pass.
 
 Port of the TPU kernel ``integral_images_pallas``
-(``nubomedia_vca_tpu/ops/pallas/integral_pallas.py:52``). The engine uses
-it for tilted levels too large for the tilted dense kernel, as the JAX
-engine does (``cascade/engine.py:538-542``). ``integral_tables`` launches
+(``nubomedia_vca_tpu/ops/pallas/integral_pallas.py:52``). The tilted
+dense phase (``dense_level_cuda.dense_level_tilted``) runs it first on
+every level of a tilted cascade: its table pass. ``integral_tables`` launches
 ``csrc/integral_tables.cu`` for a CUDA tensor (or raises) and runs the
 plain version, ``integral_image`` + ``sq_integral_image``, for a CPU
 tensor.

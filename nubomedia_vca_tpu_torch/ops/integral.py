@@ -56,10 +56,23 @@ def tilted_integral_image(img: torch.Tensor) -> torch.Tensor:
     the order (and equal to the row recurrence of the JAX package's
     ``tilted_integral_image_scan``)."""
     x = img.to(torch.int32)
-    lead, (H, W) = x.shape[:-2], x.shape[-2:]
-    x = x.reshape(-1, H, W)
-    B, dev = x.shape[0], x.device
-    C = F.pad(torch.cumsum(x, dim=-1, dtype=torch.int32), (1, 0))  # [B,H,W+1]
+    return _tilted_from_prefix(
+        F.pad(torch.cumsum(x, dim=-1, dtype=torch.int32), (1, 0)))
+
+
+def tilted_from_integral(ii: torch.Tensor) -> torch.Tensor:
+    """[..., H+1, W+1] int32 sum table → the tilted table of the same
+    image (``tilted_integral_image``): the exclusive row prefixes C are the
+    differences of consecutive table rows."""
+    return _tilted_from_prefix(ii[..., 1:, :] - ii[..., :-1, :])
+
+
+def _tilted_from_prefix(C: torch.Tensor) -> torch.Tensor:
+    """Exclusive row prefix sums C [..., H, W+1] int32 → tilted table
+    [..., H+1, W+1]."""
+    lead, (H, W) = C.shape[:-2], (C.shape[-2], C.shape[-1] - 1)
+    C = C.reshape(-1, H, W + 1)
+    B, dev = C.shape[0], C.device
     yy = torch.arange(H, device=dev)[:, None]
     k = torch.arange(W + H, device=dev)[None, :]
     # D1[y', k] = C[y', k - y'] and D2[y', m] = C[y', m - H + y'], column

@@ -1,6 +1,7 @@
 """CUDA tests of the PyTorch port: each hand-written kernel (the pyramid
-dense kernel, the tilted and row-strip forms of the level kernel, the
-integral-tables kernel, the int8 quantizers) against its plain PyTorch
+dense kernel, the tilted kernels and the row-strip kernel of the level
+dense phase, the tilted-table kernel, the integral-tables kernel, the int8
+quantizers) against its plain PyTorch
 version on the card, and the face, part and learned detectors on CUDA
 against the port's CPU run.
 
@@ -32,6 +33,7 @@ from nubomedia_vca_tpu_torch.ops import quant
 from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
                                               integral_cuda, quant_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
+from nubomedia_vca_tpu_torch.ops.integral import tilted_integral_image
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
 from nubomedia_vca_tpu_torch.utils.synth import face_clip, face_scene
 
@@ -130,25 +132,66 @@ def _part_work(size, n=8):
     ("haarcascade_righteye_2splits.xml", (20, 20)),
     ("haarcascade_lefteye_2splits.xml", (20, 20))])
 def test_tilted_kernel_equals_plain_version(cuda_device, name, min_size):
-    """The tilted level kernel on every level of the tilted route at 720p
-    (320x180 part image): ii, iit, vnf and alive exactly."""
+    """The tilted kernels (table pass, tilted table, tiled evaluation) on
+    every level of a tilted engine at 720p (320x180 part image, whose
+    first level is 320x180 with ragged last tiles both ways), and on the
+    first level in 5x7 tiles: ii, iit, vnf and alive exactly; one launch
+    of each kernel per call."""
     eng = CascadeEngine(load_cascade(os.path.join(PKG_ASSETS_DIR, name)),
                         (320, 180), 1.1, min_size=min_size,
                         device=cuda_device)
+    assert sorted(eng._level_plans) == list(range(len(eng.levels)))
+    assert (eng.levels[0].sw, eng.levels[0].sh) == (320, 180)
+    plans = [(li, plan) for li, plan in eng._level_plans.items()]
+    plans.append((0, dense_level_cuda.DenseLevelPlan.make(
+        eng.levels[0], eng._tables, tilted=True, tile=(5, 7))))
     work = _part_work((320, 180)).to(cuda_device)
+    counters = (dense_level_cuda.dense_level_tilted,
+                dense_level_cuda.tilted_table, integral_cuda.integral_tables)
     n_alive = 0
-    for li, plan in eng._level_plans.items():
+    for li, plan in plans:
         l = eng.levels[li]
+        if li == 0:     # ragged last tiles in both directions
+            assert l.ny % plan.tile_ny and l.nx % plan.tile_nx
         img = resize_linear_exact(work, (l.sw, l.sh))
-        before = dense_level_cuda.dense_level_tilted.launches
+        before = [c.launches for c in counters]
         got = dense_level_cuda.dense_level_tilted(img, plan)
-        assert dense_level_cuda.dense_level_tilted.launches == before + 1
+        assert [c.launches for c in counters] == [n + 1 for n in before]
         want = dense_level_cuda.dense_level_reference(img, plan)
         torch.cuda.synchronize()
         for g, w, what in zip(got, want, ("ii", "iit", "vnf", "alive")):
             assert torch.equal(g, w), f"level {li} {what}"
         n_alive += int(got[3].sum())
     assert n_alive > 0
+
+
+@pytest.mark.parametrize("hw", [(180, 320), (37, 53), (1, 1)])
+def test_tilted_table_kernel_equals_tilted_integral(cuda_device, hw):
+    """The tilted-table kernel on the integral kernel's sum table equals the
+    image's plain tilted table, also at the largest sums."""
+    img = torch.from_numpy(np.random.RandomState(sum(hw)).randint(
+        0, 256, (5,) + hw, np.uint8)).to(cuda_device)
+    img[0] = 255
+    ii, _ = integral_cuda.integral_tables(img)
+    before = dense_level_cuda.tilted_table.launches
+    got = dense_level_cuda.tilted_table(ii)
+    assert dense_level_cuda.tilted_table.launches == before + 1
+    want = tilted_integral_image(img)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_no_engine_has_a_tables_route(cuda_device):
+    """Every level of the part chain's engines at 720p takes a kernel route:
+    all of a tilted engine's levels the tilted kernels."""
+    for det in (NoseDetector, MouthDetector, EyeDetector):
+        d = det((1280, 720), device=cuda_device)
+        for eng in (d.face_engine, *d.part_engines.values()):
+            assert set(eng.routes) <= {"pyramid", "strips", "tilted"}
+            if eng._uses_tilt:
+                assert eng.routes == ["tilted"] * len(eng.levels)
+                assert sorted(eng._level_plans) == list(
+                    range(len(eng.levels)))
 
 
 def test_strip_kernel_equals_plain_version(cuda_device):

@@ -62,13 +62,13 @@ def test_eye_device_pass_matches_jax(detectors, clip):
 
 @pytest.mark.parametrize("side", ["right", "left"])
 def test_eye_engine_dense_phase_is_not_vacuous(detectors, clip, side):
-    """Every level of the eye engine goes through the tilted kernel's plain
-    version (160x120, the first, through the integral kernel's), and the
-    dense phase keeps windows alive on the face frames; the engine's raw
-    output equals the JAX engine's slot for slot."""
+    """Every level of the eye engine, the 160x120 first one included, goes
+    through the tilted kernels' plain version, and the dense phase keeps
+    windows alive on the face frames; the engine's raw output equals the
+    JAX engine's slot for slot."""
     pdet, jdet = detectors
     eng = pdet.part_engines[side]
-    assert eng.routes == ["tables"] + ["tilted"] * (len(eng.levels) - 1)
+    assert eng.routes == ["tilted"] * len(eng.levels)
     work = equalize_hist(resize_linear_exact(
         torch.from_numpy(clip), (eng.image_w, eng.image_h)))
     alive = sum(int(eng._dense_level(work, li)[4].sum())

@@ -3,17 +3,24 @@ versions, against the JAX package's Pallas kernels in interpret mode:
 
 * ``integral_cuda.integral_tables`` (``csrc/integral_tables.cu``) against
   ``integral_images_pallas``;
-* ``dense_level_cuda`` in its tilted form (``csrc/dense_level.cu``, the
-  single-block kernel with the tilted table) against ``build_dense_phase``
-  on a tilted cascade, as ``tests/test_pallas_ops.py`` checks the Pallas
-  kernel;
+* ``dense_level_cuda`` in its tilted form (``csrc/dense_level.cu``: table
+  pass, tilted table from the sum table, tiled evaluation), whose plain
+  version evaluates tile by tile in the kernel's tile geometry, against
+  ``build_dense_phase`` on a tilted cascade in several tile geometries (a
+  level smaller than one tile, ragged last tiles), as
+  ``tests/test_pallas_ops.py`` checks the Pallas kernel; on a level larger
+  than one block's shared memory could hold whole, against the JAX
+  engine's XLA dense phase; and in three tile sizes against a whole-level
+  evaluation;
+* the tilted-table kernel's plain version against the image's tilted
+  table;
 * ``dense_level_cuda`` in its row-strip form against the Pallas strip
   kernel (forced to several strips through the JAX engine instance's
   ``PALLAS_DENSE_MAX_ELEMS``) and against a whole-level evaluation;
-* a numpy mirror of ``csrc/dense_level.cu`` (strip-local uint32 tables, the
-  diagonal build of the tilted table, the packed feature records) against
-  the plain version: the layout the CUDA kernel reads, which only a GPU can
-  run;
+* a numpy mirror of ``csrc/dense_level.cu`` (strip-local uint32 tables;
+  the tilted table along the diagonals, the staged tiles, the tree records
+  with their corner offsets; the packed feature records) against the plain
+  version: the layout the CUDA kernels read, which only a GPU can run;
 * the engine's per-level routing at the part chain's 720p geometry.
 
 The CUDA kernels themselves are held to their plain versions on the card
@@ -25,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,9 +52,10 @@ from nubomedia_vca_tpu_torch.cascade.xml_loader import (cascade_from_numpy,
 from nubomedia_vca_tpu_torch.ops.cuda import dense_level_cuda, integral_cuda
 from nubomedia_vca_tpu_torch.ops.cuda.dense_cuda import MAX_SMEM_BYTES
 from nubomedia_vca_tpu_torch.ops.cuda.dense_level_cuda import (
-    DenseLevelPlan, dense_level_reference)
+    FEAT_WORDS, TREE_WORDS, DenseLevelPlan, dense_level_reference)
 from nubomedia_vca_tpu_torch.ops.integral import (integral_image,
-                                                  sq_integral_image)
+                                                  sq_integral_image,
+                                                  tilted_integral_image)
 from nubomedia_vca_tpu_torch.utils.synth import face_scene
 
 torch.set_num_threads(2)
@@ -112,8 +121,8 @@ def _check_vnf(img, l, tabs, vnf, w_vnf):
 @pytest.mark.parametrize("shape", [(2, 37, 53), (2, 112, 199)])
 def test_integral_tables_plain_matches_pallas(shape):
     """The plain version of the integral-tables kernel equals the Pallas
-    kernel in interpret mode (112x199: the smallest level that takes the
-    kernel at 720p); the CPU wrapper runs it and launches nothing."""
+    kernel in interpret mode (112x199: a tilted level of the part chain at
+    720p); the CPU wrapper runs it and launches nothing."""
     img = _u8(sum(shape), shape)
     want = integral_images_pallas(jnp.asarray(img), interpret=True)
     before = integral_cuda.integral_tables.launches
@@ -149,25 +158,148 @@ def tilted_engines():
     return jeng, peng
 
 
-def test_tilted_plain_matches_pallas(tilted_engines):
-    """ii and iit exact, vnf exact to the unfused formula and within the
-    XLA:CPU bound, alive exact and non-empty, on every level of noise."""
+@pytest.fixture(scope="module")
+def pallas_levels(tilted_engines):
+    """Per level of the 48x40 engine: noise [2, sh, sw] and the Pallas
+    kernel's (ii, iit, vnf, alive) on it, in interpret mode."""
     jeng, peng = tilted_engines
-    assert peng.routes == ["tilted"] * len(peng.levels)
-    n_alive = 0
+    out = []
     for li, l in enumerate(peng.levels):
         img = _u8(li + 7, (2, l.sh, l.sw))
-        ii, iit, vnf, alive = dense_level_reference(
-            torch.from_numpy(img), peng._level_plans[li])
-        w_ii, w_iit, w_vnf, w_alive = build_dense_phase(
-            jeng, l.sh, l.sw, l.ystep)(jnp.asarray(img), interpret=True)
-        assert np.array_equal(ii.numpy(), np.asarray(w_ii))
-        assert np.array_equal(iit.numpy(), np.asarray(w_iit))
-        assert np.array_equal(alive.numpy(),
-                              np.asarray(w_alive).astype(np.uint8))
-        _check_vnf(img, l, peng._tables, vnf.numpy(), np.asarray(w_vnf))
+        want = build_dense_phase(jeng, l.sh, l.sw, l.ystep)(
+            jnp.asarray(img), interpret=True)
+        out.append((img, [np.asarray(w) for w in want]))
+    return out
+
+
+@pytest.mark.parametrize("tile,n_tiles", [
+    ((16, 16), [(1, 1)] * 4),      # every level smaller than one tile
+    ((4, 6), [(3, 3), (2, 2), (1, 1), (1, 1)]),  # ragged last tiles
+    ((3, 16), [(4, 1), (3, 1), (2, 1), (1, 1)])])
+def test_tilted_plain_matches_pallas(tilted_engines, pallas_levels, tile,
+                                     n_tiles):
+    """The tilted form's plain version, tile by tile in the kernel's tile
+    geometry, against the Pallas kernel on every level of noise: ii and
+    iit exact, vnf exact to the unfused formula and within the XLA:CPU
+    bound, alive exact and non-empty."""
+    _, peng = tilted_engines
+    assert peng.routes == ["tilted"] * len(peng.levels)
+    assert [(l.ny, l.nx) for l in peng.levels] == [(11, 15), (7, 10),
+                                                   (4, 6), (1, 3)]
+    n_alive = 0
+    for li, (l, (img, (w_ii, w_iit, w_vnf, w_alive))) in enumerate(
+            zip(peng.levels, pallas_levels)):
+        plan = DenseLevelPlan.make(l, peng._tables, tilted=True, tile=tile)
+        assert plan.n_tiles == n_tiles[li]
+        ii, iit, vnf, alive = dense_level_reference(torch.from_numpy(img),
+                                                    plan)
+        assert np.array_equal(ii.numpy(), w_ii)
+        assert np.array_equal(iit.numpy(), w_iit)
+        assert np.array_equal(alive.numpy(), w_alive.astype(np.uint8))
+        _check_vnf(img, l, peng._tables, vnf.numpy(), w_vnf)
         n_alive += int(alive.sum())
     assert n_alive > 0
+
+
+@pytest.fixture(scope="module")
+def large_tilted_level():
+    """A 199x112 level (ystep 2, 47x90 windows) of the left eye's first 3
+    stages: larger than one block's shared memory could hold whole
+    (12 B x 113 x 200 > 232,448 B). Two equalized face frames and noise;
+    the JAX engine's XLA dense phase on them (its Pallas dense phase off,
+    as the JAX package runs off the TPU), taken from ``_eval_level``."""
+    casc = _truncated(load_cascade_xml(
+        os.path.join(OPENCV_DIR, "haarcascade_lefteye_2splits.xml")), 3)
+    jeng = JaxEngine(casc, (199, 112), 1.1, use_pallas_dense=False)
+    peng = CascadeEngine(cascade_from_numpy(dataclasses.asdict(casc)),
+                         (199, 112), 1.1, device="cpu")
+    l = peng.levels[0]
+    assert (l.sw, l.sh, l.ystep, l.ny, l.nx) == (199, 112, 2, 47, 90)
+    assert 12 * (l.sh + 1) * (l.sw + 1) > MAX_SMEM_BYTES
+    faces = np.stack([face_scene(199, 112, faces=((60, 56, 60), (150, 50, 44)),
+                                 seed=s) for s in range(2)])
+    img = np.concatenate([faces, _u8(8, (1, 112, 199))])
+    jeng._level_post = lambda li, img, ii, iit, vnf, alive: (ii, iit, vnf,
+                                                               alive)
+    want = jax.jit(lambda g: jeng._eval_level(g, 0))(jnp.asarray(img))
+    return peng, l, img, [np.asarray(w) for w in want]
+
+
+def test_tilted_plain_matches_xla_on_large_level(large_tilted_level):
+    """The tiled plain version against the JAX engine's XLA dense phase on a
+    level too large for one block: ii and iit exact, alive exact and
+    non-empty, vnf exact to the unfused formula and within the XLA:CPU
+    bound."""
+    peng, l, img, (w_ii, w_iit, w_vnf, w_alive) = large_tilted_level
+    plan = peng._level_plans[0]
+    assert peng.routes[0] == "tilted" and plan.n_tiles == (3, 6)
+    ii, iit, vnf, alive = dense_level_reference(torch.from_numpy(img), plan)
+    assert np.array_equal(ii.numpy(), w_ii)
+    assert np.array_equal(iit.numpy(), w_iit)
+    assert np.array_equal(alive.numpy(), w_alive.astype(np.uint8))
+    assert alive.sum() > 0
+    _check_vnf(img, l, peng._tables, vnf.numpy(), w_vnf)
+
+
+@pytest.mark.parametrize("tile,n_tiles", [((16, 16), (3, 6)),
+                                          ((5, 7), (10, 13)),
+                                          ((2, 128), (24, 1))])
+def test_tile_size_does_not_change_result(large_tilted_level, tile, n_tiles):
+    """Any tile geometry gives the whole-level evaluation exactly (vnf and
+    alive), through the CPU wrapper, which launches nothing."""
+    peng, l, img, _ = large_tilted_level
+    plan = DenseLevelPlan.make(l, peng._tables, tilted=True, tile=tile)
+    assert plan.n_tiles == n_tiles
+    x = torch.from_numpy(img)
+    before = (dense_level_cuda.dense_level_tilted.launches,
+              dense_level_cuda.tilted_table.launches,
+              integral_cuda.integral_tables.launches)
+    ii, iit, vnf, alive = dense_level_cuda.dense_level_tilted(x, plan)
+    assert (dense_level_cuda.dense_level_tilted.launches,
+            dense_level_cuda.tilted_table.launches,
+            integral_cuda.integral_tables.launches) == before
+    whole = peng._tables.evaluate(ii, sq_integral_image(x), iit, l.ny, l.nx,
+                                  l.ystep)
+    assert torch.equal(vnf, whole[0]) and torch.equal(alive, whole[1])
+    assert alive.sum() > 0
+
+
+@pytest.mark.parametrize("hw", [(180, 320), (37, 53), (1, 1)])
+def test_tilted_table_plain_matches_tilted_integral(hw):
+    """The tilted-table kernel's plain version (from the sum table) and its
+    numpy mirror (the kernel's diagonal passes) equal the image's tilted
+    table, also at the largest sums; the CPU wrapper launches nothing."""
+    img = _u8(sum(hw), (3,) + hw)
+    img[0] = 255
+    x = torch.from_numpy(img)
+    ii = integral_image(x)
+    before = dense_level_cuda.tilted_table.launches
+    got = dense_level_cuda.tilted_table(ii)
+    assert dense_level_cuda.tilted_table.launches == before
+    want = tilted_integral_image(x)
+    assert torch.equal(got, want)
+    mirror = _tilted_table_mirror(ii.numpy().view(np.uint32))
+    assert np.array_equal(mirror.view(np.int32), want.numpy())
+    with pytest.raises(TypeError):
+        dense_level_cuda.tilted_table(integral_image(x).to(torch.int64))
+
+
+def test_tilted_tile_too_large_raises():
+    """A tilted level whose tile of windows cannot fit shared memory has no
+    route: engine construction raises on every device; a plan refuses a
+    tile over its shared-memory budget."""
+    casc = port_load(os.path.join(PKG_ASSETS_DIR,
+                                  "haarcascade_righteye_2splits.xml"))
+    big = dataclasses.replace(casc, window_w=240, window_h=240)
+    with pytest.raises(NotImplementedError, match="no dense kernel"):
+        CascadeEngine(big, (320, 320), 1.1, device="cpu")
+    eng = CascadeEngine(casc, (64, 48), 1.1, device="cpu")
+    smem = 4 * (3 * 49 * 51 + 46 * TREE_WORDS + 6)   # tables, 46 trees
+    assert DenseLevelPlan.make(eng.levels[0], eng._tables,
+                               tilted=True).smem_bytes == smem
+    with pytest.raises(ValueError, match="tile"):
+        DenseLevelPlan.make(eng.levels[0], eng._tables, tilted=True,
+                            max_smem=smem - 1)
 
 
 def test_tilted_wrapper_on_cpu_runs_plain_version(tilted_engines):
@@ -250,105 +382,188 @@ def test_strip_count_does_not_change_result(strip_case, max_smem, n_strips):
 
 
 # ------------------------------------------------------ kernel mirror
+def _tables_mirror(x):
+    """uint32 sum and squared-sum tables of uint8 pixels [B, rows, sw]."""
+    x = x.astype(np.int64)
+    ii = np.zeros((x.shape[0], x.shape[1] + 1, x.shape[2] + 1), np.uint32)
+    sq = np.zeros_like(ii)
+    ii[:, 1:, 1:] = x.cumsum(-1).cumsum(-2)
+    sq[:, 1:, 1:] = (x * x).cumsum(-1).cumsum(-2)
+    return ii, sq
+
+
+def _tilted_table_mirror(ii):
+    """numpy mirror of tilted_table_kernel, uint32 throughout: A carried
+    along each anti-diagonal x + y = d (from 0, or from ii[y][W] where it
+    enters at column W) and written, then D carried along each diagonal
+    x - y (from 0 at column 0) and subtracted, a row at a time as a warp
+    steps its diagonals."""
+    B, H, W = ii.shape[0], ii.shape[1] - 1, ii.shape[2] - 1
+    iit = np.zeros_like(ii)
+    diag = np.arange(W + H + 1)
+    a = np.zeros((B, W + H + 1), np.uint32)
+    for y in range(1, H + 1):
+        on = (diag - y >= 0) & (diag - y <= W)
+        x = diag[on] - y
+        xc = np.minimum(x, W - 1)
+        a[:, on] = np.where(x == W, ii[:, y, W][:, None],
+                            a[:, on] + ii[:, y, xc] - ii[:, y - 1, xc])
+        iit[:, y, x] = a[:, on]
+    dsum = np.zeros((B, W + H + 1), np.uint32)
+    for y in range(1, H + 1):
+        on = (diag - H + y >= 1) & (diag - H + y <= W)
+        x = diag[on] - H + y
+        dsum[:, on] += ii[:, y, x - 1] - ii[:, y - 1, x - 1]
+        iit[:, y, x] -= dsum[:, on]
+    return iit
+
+
+def _eval_mirror(plan, ii, sq, iit, oy, ox):
+    """The window loop over the packed feature and weak-tree records
+    (float32 throughout) at origins (oy, ox) of the given uint32 tables."""
+    t, tabs = plan.tables.host, plan.tables
+    f32 = np.float32
+
+    def at(tab, dy, dx):
+        return tab[:, oy + dy, ox + dx]
+
+    def feature(fid):
+        fi, fw = t["feat_i"][fid], t["feat_w"][fid]
+        val = None
+        for r in range(fi[0]):
+            rx, ry, rw, rh = fi[1 + 4 * r:5 + 4 * r]
+            if fi[-1]:
+                v = (at(iit, ry, rx) - at(iit, ry + rw, rx + rw)
+                     - at(iit, ry + rh, rx - rh)
+                     + at(iit, ry + rw + rh, rx + rw - rh))
+            else:
+                v = (at(ii, ry, rx) - at(ii, ry, rx + rw)
+                     - at(ii, ry + rh, rx) + at(ii, ry + rh, rx + rw))
+            term = v.view(np.int32).astype(f32) * fw[r]
+            val = term if val is None else val + term
+        return val
+
+    nw, nh = tabs.norm_w, tabs.norm_h
+
+    def norm_rect(tab):
+        return (at(tab, 1, 1) - at(tab, 1, 1 + nw) - at(tab, 1 + nh, 1)
+                + at(tab, 1 + nh, 1 + nw))
+
+    vf = norm_rect(ii).view(np.int32).astype(f32)
+    nf = f32(tabs.norm_area) * norm_rect(sq).astype(f32) - vf * vf
+    alive = nf > f32(tabs.var_thr)
+    vnf = np.where(alive, f32(1) / np.sqrt(np.maximum(nf, f32(1e-20))),
+                   f32(1))
+    for st in range(tabs.n_dense):
+        ssum = np.zeros_like(vnf)
+        for k in np.nonzero(t["weak_i"][:, 3] == st)[0]:
+            (fa, fl, fr, _), wf = t["weak_i"][k], t["weak_f"][k]
+            v0, vl, vr = (feature(f) * vnf for f in (fa, fl, fr))
+            lv = np.where(vl < wf[1], wf[3], wf[4])
+            rv = np.where(vr < wf[2], wf[5], wf[6])
+            ssum = ssum + np.where(v0 < wf[0], lv, rv)
+        alive &= ssum >= t["stage_thr"][st]
+    return vnf, alive
+
+
+def _records_mirror(plan, ii, sq, iit, origin):
+    """The evaluation kernel's window loop over the plan's tree records:
+    flat staged tables [B, tile_rows * pitch] (uint32), window origins
+    [rows, cols] as flat offsets; corner offsets from the records, float32
+    throughout."""
+    tabs, f32 = plan.tables, np.float32
+
+    def feature(f):
+        t = iit if f[1] else ii
+        val = None
+        for r in range(f[0]):
+            o = f[2 + 4 * r:6 + 4 * r]
+            s = (t[:, origin + o[0]] - t[:, origin + o[1]]
+                 - t[:, origin + o[2]] + t[:, origin + o[3]])
+            term = s.view(np.int32).astype(f32) * f[14 + r:15 + r].view(f32)
+            val = term if val is None else val + term
+        return val
+
+    p, nw, nh = plan.pitch, tabs.norm_w, tabs.norm_h
+    n0, n2 = p + 1, (1 + nh) * p + 1
+
+    def norm_rect(t):
+        return (t[:, origin + n0] - t[:, origin + n0 + nw]
+                - t[:, origin + n2] + t[:, origin + n2 + nw])
+
+    vf = norm_rect(ii).view(np.int32).astype(f32)
+    nf = f32(tabs.norm_area) * norm_rect(sq).astype(f32) - vf * vf
+    alive = nf > f32(tabs.var_thr)
+    vnf = np.where(alive, f32(1) / np.sqrt(np.maximum(nf, f32(1e-20))),
+                   f32(1))
+    for st in range(tabs.n_dense):
+        ssum = np.zeros_like(vnf)
+        for tree in plan.records[plan.records[:, -1] == st]:
+            wf = tree[3 * FEAT_WORDS:-1].view(f32)
+            v0, vl, vr = (feature(tree[j * FEAT_WORDS:(j + 1) * FEAT_WORDS])
+                          * vnf for j in range(3))
+            lv = np.where(vl < wf[1], wf[3], wf[4])
+            rv = np.where(vr < wf[2], wf[5], wf[6])
+            ssum = ssum + np.where(v0 < wf[0], lv, rv)
+        alive &= ssum >= tabs.host["stage_thr"][st]
+    return vnf, alive
+
+
 def _level_kernel_mirror(plan, img):
-    """numpy mirror of csrc/dense_level.cu: per (strip, frame) block,
-    uint32 strip-local tables, the tilted table by the diagonal running
-    sums (tilted form), then the window loop over the packed feature and
-    weak-tree records (float32 throughout)."""
-    t, tabs, l = plan.tables.host, plan.tables, plan.level
-    f32, u32 = np.float32, np.uint32
-    h0 = tabs.window_h
-    B = img.shape[0]
-    vnf_out = np.zeros((B, l.ny, l.nx), f32)
+    """numpy mirror of csrc/dense_level.cu. Strips: per (strip, frame)
+    block, strip-local tables and the window loop. Tilted: the level's
+    tables, the tilted table along the diagonals, then per (tile, frame)
+    block the tile's window of the three tables staged at the plan's row
+    length, and the window loop over the plan's tree records there."""
+    l, h0, w0 = plan.level, plan.tables.window_h, plan.tables.window_w
+    B, step = img.shape[0], l.ystep
+    vnf_out = np.zeros((B, l.ny, l.nx), np.float32)
     alive_out = np.zeros((B, l.ny, l.nx), np.uint8)
-    ii_out = iit_out = None
+    if plan.tilted:
+        ii, sq = _tables_mirror(img)
+        iit = _tilted_table_mirror(ii)
+        for iy0, n_rows, ix0, n_cols in plan.tiles():
+            r0, c0 = iy0 * step, ix0 * step
+            rows = slice(r0, r0 + (n_rows - 1) * step + h0 + 1)
+            cols = slice(c0, c0 + (n_cols - 1) * step + w0 + 1)
+            staged = []
+            for t in (ii, sq, iit):
+                s = np.zeros((B, plan.tile_rows, plan.pitch), np.uint32)
+                part = t[:, rows, cols]
+                s[:, :part.shape[1], :part.shape[2]] = part
+                staged.append(s.reshape(B, -1))
+            vnf, alive = _records_mirror(
+                plan, *staged, (np.arange(n_rows) * step)[:, None] * plan.pitch
+                + (np.arange(n_cols) * step)[None, :])
+            vnf_out[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = vnf
+            alive_out[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = alive
+        return ii.view(np.int32), iit.view(np.int32), vnf_out, alive_out
     for s in range(plan.n_strips):
         row0 = s * plan.strip_gy
         rows = min(plan.strip_gy + h0 - 1, l.sh - row0)
-        x = img[:, row0:row0 + rows].astype(np.int64)
-        ii = np.zeros((B, rows + 1, l.sw + 1), u32)
-        sq = np.zeros((B, rows + 1, l.sw + 1), u32)
-        ii[:, 1:, 1:] = x.cumsum(-1).cumsum(-2)
-        sq[:, 1:, 1:] = (x * x).cumsum(-1).cumsum(-2)
-        iit = np.zeros_like(ii)
-        if plan.tilted:
-            sw = l.sw
-            for d in range(sw + rows + 1):          # anti-diagonals: A
-                y = max(0, d - sw)
-                xx = d - y
-                a = np.zeros(B, u32) if y == 0 else ii[:, y, sw].copy()
-                iit[:, y, xx] = a
-                while y < rows and xx > 0:
-                    a += ii[:, y + 1, xx - 1] - ii[:, y, xx - 1]
-                    y, xx = y + 1, xx - 1
-                    iit[:, y, xx] = a
-            for d in range(sw + rows + 1):          # diagonals: minus D
-                y = max(0, rows - d)
-                xx = d - rows + y
-                dsum = np.zeros(B, u32)
-                while y < rows and xx < sw:
-                    dsum += ii[:, y + 1, xx] - ii[:, y, xx]
-                    y, xx = y + 1, xx + 1
-                    iit[:, y, xx] -= dsum
-            ii_out, iit_out = ii.view(np.int32), iit.view(np.int32)
-        iy0 = row0 // l.ystep
-        iy1 = min(l.ny, (row0 + plan.strip_gy) // l.ystep)
-        oy = (np.arange(iy0, iy1) * l.ystep - row0)[:, None]
-        ox = (np.arange(l.nx) * l.ystep)[None, :]
-
-        def at(tab, dy, dx):
-            return tab[:, oy + dy, ox + dx]
-
-        def feature(fid):
-            fi, fw = t["feat_i"][fid], t["feat_w"][fid]
-            val = None
-            for r in range(fi[0]):
-                rx, ry, rw, rh = fi[1 + 4 * r:5 + 4 * r]
-                if fi[-1]:
-                    v = (at(iit, ry, rx) - at(iit, ry + rw, rx + rw)
-                         - at(iit, ry + rh, rx - rh)
-                         + at(iit, ry + rw + rh, rx + rw - rh))
-                else:
-                    v = (at(ii, ry, rx) - at(ii, ry, rx + rw)
-                         - at(ii, ry + rh, rx) + at(ii, ry + rh, rx + rw))
-                term = v.view(np.int32).astype(f32) * fw[r]
-                val = term if val is None else val + term
-            return val
-
-        nw, nh = tabs.norm_w, tabs.norm_h
-
-        def norm_rect(tab):
-            return (at(tab, 1, 1) - at(tab, 1, 1 + nw) - at(tab, 1 + nh, 1)
-                    + at(tab, 1 + nh, 1 + nw))
-
-        vf = norm_rect(ii).view(np.int32).astype(f32)
-        nf = f32(tabs.norm_area) * norm_rect(sq).astype(f32) - vf * vf
-        alive = nf > f32(tabs.var_thr)
-        vnf = np.where(alive, f32(1) / np.sqrt(np.maximum(nf, f32(1e-20))),
-                       f32(1))
-        for st in range(tabs.n_dense):
-            ssum = np.zeros_like(vnf)
-            for k in np.nonzero(t["weak_i"][:, 3] == st)[0]:
-                (fa, fl, fr, _), wf = t["weak_i"][k], t["weak_f"][k]
-                v0, vl, vr = (feature(f) * vnf for f in (fa, fl, fr))
-                lv = np.where(vl < wf[1], wf[3], wf[4])
-                rv = np.where(vr < wf[2], wf[5], wf[6])
-                ssum = ssum + np.where(v0 < wf[0], lv, rv)
-            alive &= ssum >= t["stage_thr"][st]
+        ii, sq = _tables_mirror(img[:, row0:row0 + rows])
+        iy0 = row0 // step
+        iy1 = min(l.ny, (row0 + plan.strip_gy) // step)
+        vnf, alive = _eval_mirror(
+            plan, ii, sq, None, (np.arange(iy0, iy1) * step - row0)[:, None],
+            (np.arange(l.nx) * step)[None, :])
         vnf_out[:, iy0:iy1] = vnf
         alive_out[:, iy0:iy1] = alive
-    return ii_out, iit_out, vnf_out, alive_out
+    return None, None, vnf_out, alive_out
 
 
 def test_level_kernel_tables_reproduce_plain_version(tilted_engines,
                                                      strip_case):
-    """Both forms of the level kernel, mirrored in numpy from the packed
-    records: the tilted form on the tilted cascade's largest level, the
-    strip form with three strips."""
+    """Both forms of the level kernels, mirrored in numpy from the packed
+    records: the tilted form on the tilted cascade's largest level in one
+    tile and in 3x3 ragged tiles, the strip form with three strips."""
     _, peng_t = tilted_engines
     _, peng_s, l, img = strip_case
-    cases = [(peng_t._level_plans[0],
-              _u8(21, (2, peng_t.levels[0].sh, peng_t.levels[0].sw))),
+    l_t = peng_t.levels[0]
+    x_t = _u8(21, (2, l_t.sh, l_t.sw))
+    cases = [(peng_t._level_plans[0], x_t),
+             (DenseLevelPlan.make(l_t, peng_t._tables, tilted=True,
+                                  tile=(4, 6)), x_t),
              (DenseLevelPlan.make(l, peng_s._tables, tilted=False,
                                   max_smem=8 * 61 * 65), img)]
     for plan, x in cases:
@@ -367,8 +582,10 @@ def test_routing_at_720p():
     (host geometry only): the face pass at 160x90 all in the pyramid
     kernel; the nose at 320x180: the four levels over the pyramid kernel's
     shared memory in row strips, 20 in one pyramid launch; the mouth and
-    eyes: tilted levels up to 181x102 (12 B per table element) in the
-    tilted kernel, the six larger ones through the integral kernel."""
+    eyes: every level in the tilted kernels, 320x180 included, with 16x16
+    tiles of windows (49x67 table entries of each table for the smile's
+    36x18 window, 51x51 for the eyes' 20x20) and the tree records in shared
+    memory."""
     def eng(name, size, factor, min_size):
         return CascadeEngine(port_load(os.path.join(PKG_ASSETS_DIR, name)),
                              size, factor, min_size=min_size, device="cpu")
@@ -384,15 +601,25 @@ def test_routing_at_720p():
     assert all(p.smem_bytes <= MAX_SMEM_BYTES
                for p in nose._level_plans.values())
     assert nose._plan.smem_bytes == 8 * 220 * 124 <= MAX_SMEM_BYTES
-    for name, min_size, n_tilted in [
-            ("haarcascade_smile.xml", (1, 1), 17),
-            ("haarcascade_righteye_2splits.xml", (20, 20), 18),
-            ("haarcascade_lefteye_2splits.xml", (20, 20), 18)]:
+    for name, min_size, n_levels, (rows, pitch), tiles in [
+            ("haarcascade_smile.xml", (1, 1), 23, (49, 67), (6, 9)),
+            ("haarcascade_righteye_2splits.xml", (20, 20), 24, (51, 51),
+             (6, 10)),
+            ("haarcascade_lefteye_2splits.xml", (20, 20), 24, (51, 51),
+             (6, 10))]:
         e = eng(name, (320, 180), 1.1, min_size)
-        assert e.routes == ["tables"] * 6 + ["tilted"] * n_tilted, name
+        assert e.routes == ["tilted"] * n_levels, name
         assert (e.levels[5].sw, e.levels[5].sh) == (199, 112)
         assert (e.levels[6].sw, e.levels[6].sh) == (181, 102)
-        assert e._level_plans[6].smem_bytes == 12 * 182 * 103
+        plans = [e._level_plans[li] for li in range(n_levels)]
+        assert (plans[0].tile_ny, plans[0].tile_nx) == (16, 16)
+        assert plans[0].n_tiles == tiles
+        assert (plans[0].tile_rows, plans[0].pitch) == (rows, pitch)
+        n_weak = len(e._tables.host["weak_i"])
+        assert plans[0].records.shape == (n_weak, TREE_WORDS)
+        assert max(p.smem_bytes for p in plans) == plans[0].smem_bytes == 4 * (
+            3 * rows * pitch + n_weak * TREE_WORDS + e._tables.n_dense)
+        assert plans[0].smem_bytes < MAX_SMEM_BYTES // 4
         assert e._plan is None and e._patch_dtype == torch.float64
 
 

@@ -6,10 +6,9 @@ the face pass at 160 too), two frames of the synthetic face clip, two
 Per-frame outputs must be equal, and so must the device pass's raw
 results slot for slot: the grouped faces and the compacted raw part
 candidates with their overflow flags (the mouth's cascade overflows a
-level's capacity on these frames). The mouth's 160x120 first level takes
-the large-tilted route (integral kernel + plain tilted table and dense
-phase), its other levels the tilted kernel's; the nose is a no-block
-cascade.
+level's capacity on these frames). Every level of the mouth, its 160x120
+first level included, takes the tilted kernels' plain version; the nose
+is a no-block cascade.
 """
 
 from __future__ import annotations
@@ -91,7 +90,7 @@ def test_part_engine_routes(detectors):
     eng = pdet.part_engines[name]
     assert (eng.image_w, eng.image_h) == (160, 120)
     if name == "mouth":
-        assert eng.routes == ["tables"] + ["tilted"] * (len(eng.levels) - 1)
+        assert eng.routes == ["tilted"] * len(eng.levels)
     else:
         assert eng.routes == ["pyramid"] * len(eng.levels)
         assert not eng._blocks

@@ -11,9 +11,9 @@ with the card's name and power limit:
   stage is launch-bound. Stages: the face and part images (resize +
   equalize), the face pass (detection + grouping), and per part engine the
   dense phase of each level route (pyramid kernel; resize + row-strip
-  kernel; resize + tilted kernel; resize + integral kernel + plain tilted
-  table and dense phase), the survivor stages of all levels, and the
-  candidate compaction;
+  kernel; resize + the tilted kernels), for a tilted engine its table pass
+  (integral kernel + tilted-table kernel) and its evaluation kernel alone,
+  the survivor stages of all levels, and the candidate compaction;
 * the whole device pass's ms per batch, and the profiler's device busy
   share and device ops per batch;
 * the ops with the most device time.
@@ -34,6 +34,10 @@ from nubomedia_vca_tpu_torch.models import (  # noqa: E402
     EyeDetector, MouthDetector, NoseDetector)
 from nubomedia_vca_tpu_torch.ops.cuda.dense_cuda import (  # noqa: E402
     pyramid_dense_phase)
+from nubomedia_vca_tpu_torch.ops.cuda.dense_level_cuda import (  # noqa: E402
+    _tilted_eval, tilted_table)
+from nubomedia_vca_tpu_torch.ops.cuda.integral_cuda import (  # noqa: E402
+    integral_tables)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
@@ -74,12 +78,26 @@ def engine_stages(name, eng, work):
         rows.append((f"{name} dense: pyramid kernel "
                      f"({len(eng._pyramid_lis)} levels)",
                      lambda: pyramid_dense_phase(work, eng._plan)))
-    for route in ("strips", "tilted", "tables"):
+    for route in ("strips", "tilted"):
         lis = [li for li, r in enumerate(routes) if r == route]
         if lis:
             rows.append((f"{name} dense: {route} ({len(lis)} levels)",
                          lambda lis=lis: [eng._dense_level(work, li)
                                           for li in lis]))
+    tilted = [li for li, r in enumerate(routes) if r == "tilted"]
+    if tilted:
+        imgs = {li: dense[li][0] for li in tilted}
+        tables = {li: (ii, sq, iit) for li in tilted
+                  for (ii, sq), iit in [(integral_tables(imgs[li]),
+                                         dense[li][2])]}
+        rows.append((f"{name} dense: tilted table pass, integral kernel + "
+                     f"tilted table ({len(tilted)} levels)",
+                     lambda: [tilted_table(integral_tables(imgs[li])[0])
+                              for li in tilted]))
+        rows.append((f"{name} dense: tilted evaluation kernel "
+                     f"({len(tilted)} levels)",
+                     lambda: [_tilted_eval(*tables[li], eng._level_plans[li])
+                              for li in tilted]))
     rows.append((f"{name} survivors ({len(eng.levels)} levels)",
                  lambda: [eng._level_post(li, *dense[li][:4],
                                           dense[li][4].bool())
