@@ -12,12 +12,13 @@ Phases, each printing its findings, any failure ending the run non-zero:
    started together (ptxas registers, spills and shared memory per kernel);
 3. kernels vs plain versions, exactly, on the same CUDA tensors:
    the pyramid dense kernel on B=64 synthetic 1280x720 (and 640x480) face
-   work images and noise (level images, vnf, alive); at the part chain's
+   work images and noise (level images, vnf, alive), and on the nose's
+   20-level launch of the part chain at 320x180; at the part chain's
    320x180, the tilted kernels (table pass, tilted table, tiled
    evaluation) on every level of the mouth and both eyes, 320x180
    included (ii, iit, vnf, alive), the tilted-table kernel alone against
    the image's plain tilted table and the integral kernel alone on the
-   same levels, the row-strip kernel on the nose's four strip levels and
+   same levels and at band-edge heights and 1x1, the row-strip kernel on the nose's four strip levels and
    with one strip on a pyramid-sized level (vnf, alive); the
    int8 quantizer on the seven layer inputs of a B=64 720p int8 forward
    and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all zeros), the
@@ -48,7 +49,10 @@ Phases, each printing its findings, any failure ending the run non-zero:
    shapes and this run's data, and a PyTorch call computing the same
    function where there is one (the ``torch.cumsum`` pair for the integral
    kernel, ``abs().amax()`` + ``torch.quantize_per_tensor`` for the int8
-   quantizer); the tilted dense phase over the right eye's 18 levels that
+   quantizer): the pyramid kernel on the face path's launch and on the
+   nose's 20-level launch, the integral kernel over the mouth's 23, the
+   right eye's 24 and its 6 largest levels; the tilted dense phase over
+   the right eye's 18 levels that
    the single-block kernel of earlier versions took, over all 24, and over
    the six largest against the plain tilted table and dense phase that
    took them before, each with the table pass's and the evaluation's
@@ -240,12 +244,19 @@ def build_all() -> None:
                 print(f"  ptxas: {line.strip()}")
 
 
-def check_pyramid(dev, frames_by_size) -> float:
+def check_pyramid(dev, frames_by_size, nose) -> float:
+    """The pyramid kernel vs its plain version on the face engine's plans
+    (720p and 480p frames) and on the nose's 20-level launch of the part
+    chain (720p frames at 320x180); faces and noise; → max |err|."""
     max_err = 0.0
+    cases = []
     for size, frames in frames_by_size.items():
         eng = get_engine(DEFAULT_FACE_CASCADE,
                          (160, round(size[1] * 160 / size[0])), 1.25,
                          device=dev)
+        cases.append((f"face {size[0]}x{size[1]}", eng, frames))
+    cases.append(("nose 1280x720", nose, frames_by_size[FRAME]))
+    for what, eng, frames in cases:
         work = work_images(frames, (eng.image_w, eng.image_h), dev)
         noise = torch.from_numpy(np.random.RandomState(5).randint(
             0, 256, work.shape, np.uint8)).to(dev)
@@ -255,15 +266,16 @@ def check_pyramid(dev, frames_by_size) -> float:
             want = dense_cuda.pyramid_dense_phase_reference(x, eng._plan)
             torch.cuda.synchronize()
             for li, (g, w) in enumerate(zip(got, want)):
-                for gt, wt, what in zip(g, w, ("image", "vnf", "alive")):
+                for gt, wt, name in zip(g, w, ("image", "vnf", "alive")):
                     max_err = max(max_err, assert_equal(
-                        gt, wt, f"pyramid {size} level {li} {what}"))
+                        gt, wt, f"pyramid {what} level {li} {name}"))
             n_alive.append(sum(int(a.sum()) for _, _, a in got))
-        print(f"pyramid kernel {size[0]}x{size[1]} -> work "
-              f"{eng.image_w}x{eng.image_h}, {len(eng.levels)} levels, "
-              f"B={BATCH}: == plain (level images, vnf, alive); alive "
-              f"windows {n_alive[0]} (faces) {n_alive[1]} (noise); smem "
-              f"{eng._plan.smem_bytes} B")
+        p = eng._plan
+        print(f"pyramid kernel, {what} -> work {eng.image_w}x{eng.image_h}, "
+              f"{len(p.levels)} levels in {len(p.items)} bands, B={BATCH}: "
+              f"== plain (level images, vnf, alive); alive windows "
+              f"{n_alive[0]} (faces) {n_alive[1]} (noise); smem per block "
+              f"{p.band_smem_bytes} B (whole largest level {p.smem_bytes} B)")
     return max_err
 
 
@@ -321,9 +333,22 @@ def check_level_kernels(dev, dets, part_frames) -> dict[str, float]:
               "iit, vnf, alive), integral kernel == plain (ii, sq), "
               "tilted-table kernel "
               f"== tilted_integral_image; alive windows {n_alive}")
+    # the integral kernel alone on one band, band edges at 320 columns (16
+    # rows a band) and a single pixel, at the largest sums
+    rng = np.random.RandomState(8)
+    for hw in [(1, 1), (15, 320), (16, 320), (17, 320), (33, 320), (37, 53)]:
+        img = torch.from_numpy(rng.randint(0, 256, (BATCH,) + hw,
+                                           np.uint8)).to(dev)
+        img[0] = 255
+        for g, w, what in zip(integral_cuda.integral_tables(img),
+                              integral_cuda.integral_tables_reference(img),
+                              ("ii", "sq")):
+            err["integral_tables"] = max(err["integral_tables"], assert_equal(
+                g, w, f"integral {hw} {what}"))
     print(f"tilted kernels: {n_levels} tilted levels, max |err| "
           f"{err['dense_level_tilted']}, tilted table "
-          f"{err['tilted_table']}, integral {err['integral_tables']}")
+          f"{err['tilted_table']}, integral {err['integral_tables']} (also "
+          "at 1x1, 320 wide at 15, 16, 17, 33 rows, 53x37)")
     nose = dets["NoseDetector"].part_engines["nose"]
     plans = dict(nose._level_plans)
     one = dense_level_cuda.DenseLevelPlan.make(
@@ -735,14 +760,12 @@ def part_device_pass(det, gray):
     return run
 
 
-def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
-    out: dict[str, dict] = {}
-    # pyramid kernel: the face path's 7 levels at 160x90
-    work = work_images(frames_720, (160, 90), dev)
-    plan = face_eng._plan
+def time_pyramid(gpu, work, plan, what) -> dict:
+    """The pyramid kernel on one launch's levels, with its plain version
+    and bound."""
     k, p, runs = in_turns(lambda: dense_cuda.pyramid_dense_phase(work, plan),
                           lambda: dense_cuda.pyramid_dense_phase_reference(
-                              work, plan), 50, 10)
+                              work, plan), 50, 5)
     res = dense_cuda.pyramid_dense_phase(work, plan)
     n_bytes = work.numel() + sum(
         (img.numel() if img is not None else 0) + 5 * vnf.numel()
@@ -751,50 +774,74 @@ def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
     n_ops = sum(dense_ops(plan.tables, vnf, alive) + 12.0 * BATCH * l.sh
                 * l.sw for l, (_, vnf, alive) in zip(plan.levels, res))
     b_ms, b_by = bound(n_bytes, n_ops)
-    out["pyramid_dense_phase"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
-                                      bound_by=b_by, library_ms=None)
-    print(f"time: pyramid dense kernel {k:.4f} ms per B={BATCH} 720p face "
-          f"batch (160x90, 7 levels; runs {runs}); bound {b_ms:.4f} ms "
+    print(f"time: pyramid dense kernel {k:.4f} ms per B={BATCH} 720p batch "
+          f"over {what} ({len(plan.levels)} levels in {len(plan.items)} "
+          f"bands; runs {runs}); plain {p:.4f} ms; bound {b_ms:.4f} ms "
           f"({b_by}) [{gpu}]")
+    return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def time_integral(gpu, imgs, what) -> dict:
+    """The integral kernel over a list of level images [B, h, w], with its
+    plain version, the torch.cumsum pair and its bound."""
+    k, p, runs = in_turns(
+        lambda: [integral_cuda.integral_tables(x) for x in imgs],
+        lambda: [integral_cuda.integral_tables_reference(x) for x in imgs],
+        50, 10)
+
+    def cumsum_pair():
+        for x in imgs:
+            x = x.to(torch.int32)
+            torch.cumsum(torch.cumsum(x, -1, dtype=torch.int32), -2,
+                         dtype=torch.int32)
+            torch.cumsum(torch.cumsum(x * x, -1, dtype=torch.int32), -2,
+                         dtype=torch.int32)
+
+    lib_ms = cuda_ms(cumsum_pair, 50)
+    # each pixel read once, both tables written once; a multiply and
+    # two adds per pixel and table
+    n_bytes = sum(x.numel() + 8 * x.shape[0] * (x.shape[1] + 1)
+                  * (x.shape[2] + 1) for x in imgs)
+    b_ms, b_by = bound(n_bytes, sum(6.0 * x.numel() for x in imgs))
+    print(f"time: integral kernel {k:.4f} ms per B={BATCH} batch over {what}; "
+          f"runs {runs}; plain {p:.4f} ms; torch.cumsum pair {lib_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}) [{gpu}]")
+    return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def level_images(part, eng) -> dict[int, torch.Tensor]:
+    return {li: resize_linear_exact(part, (l.sw, l.sh))
+            for li, l in enumerate(eng.levels)}
+
+
+def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
+    out: dict[str, dict] = {}
+    # pyramid kernel: the face path's 7 levels at 160x90, and the nose's
+    # 20-level launch at 320x180
+    out["pyramid_dense_phase"] = time_pyramid(
+        gpu, work_images(frames_720, (160, 90), dev), face_eng._plan,
+        "the face path's levels at 160x90")
+    part = work_images(frames_720, (320, 180), dev)
+    nose = dets["NoseDetector"].part_engines["nose"]
+    time_pyramid(gpu, part, nose._plan,
+                 "the nose's pyramid launch at 320x180 (219x123 .. 36x20)")
 
     # level kernels at the part chain's 320x180, per B=64 batch
-    part = work_images(frames_720, (320, 180), dev)
     eye = dets["EyeDetector"].part_engines["right"]
-    levels = {li: resize_linear_exact(part, (eye.levels[li].sw,
-                                             eye.levels[li].sh))
-              for li in range(len(eye.levels))}
+    levels = level_images(part, eye)
     out.update(time_tilted(gpu, eye, levels))
-    all_lis = list(levels)
-    for what, lis in (("the 6 largest tilted levels (320x180 .. 199x112), "
-                       "comparable with earlier runs", all_lis[:6]),
-                      ("all 24 tilted levels (its launches on the path)",
-                       all_lis)):
-        k, p, runs = in_turns(
-            lambda: [integral_cuda.integral_tables(levels[li]) for li in lis],
-            lambda: [integral_cuda.integral_tables_reference(levels[li])
-                     for li in lis], 50, 10)
+    mouth = level_images(part, dets["MouthDetector"].part_engines["mouth"])
+    time_integral(gpu, list(mouth.values()),
+                  "the mouth's 23 tilted levels (its launches on the path)")
+    time_integral(gpu, [levels[li] for li in range(6)],
+                  "the right eye's 6 largest tilted levels (320x180 .. "
+                  "199x112)")
+    out["integral_tables"] = time_integral(
+        gpu, list(levels.values()),
+        "the right eye's 24 tilted levels (its launches on the path)")
 
-        def cumsum_pair():
-            for li in lis:
-                x = levels[li].to(torch.int32)
-                torch.cumsum(torch.cumsum(x, -1, dtype=torch.int32), -2,
-                             dtype=torch.int32)
-                torch.cumsum(torch.cumsum(x * x, -1, dtype=torch.int32), -2,
-                             dtype=torch.int32)
-
-        lib_ms = cuda_ms(cumsum_pair, 50)
-        n_bytes = sum(levels[li].numel() * (1 + 8) + 8 * BATCH * (
-            levels[li].shape[1] + levels[li].shape[2] + 1) for li in lis)
-        n_ops = sum(6.0 * levels[li].numel() for li in lis)
-        b_ms, b_by = bound(n_bytes, n_ops)
-        out["integral_tables"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
-                                      bound_by=b_by, library_ms=lib_ms)
-        print(f"time: integral kernel {k:.4f} ms per B={BATCH} batch over "
-              f"the right eye's {what}; runs {runs}; plain {p:.4f} ms; "
-              f"torch.cumsum pair {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
-              f"({b_by}) [{gpu}]")
-
-    nose = dets["NoseDetector"].part_engines["nose"]
     splans = nose._level_plans
     nlevels = {li: resize_linear_exact(part, (nose.levels[li].sw,
                                               nose.levels[li].sh))
@@ -878,8 +925,9 @@ def main() -> int:
     phase("3 kernels vs plain versions")
     frames = {size: face_clip(BATCH, *size, seed=11)
               for size in (FRAME, (640, 480))}
-    err = {"pyramid_dense_phase": check_pyramid(dev, frames)}
     dets = part_engines(dev)
+    err = {"pyramid_dense_phase": check_pyramid(
+        dev, frames, dets["NoseDetector"].part_engines["nose"])}
     err.update(check_level_kernels(dev, dets, frames[FRAME]))
     xs = layer_inputs(dev, frames[FRAME])
     err.update(check_quant(dev, xs))

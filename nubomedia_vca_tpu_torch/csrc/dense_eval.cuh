@@ -1,5 +1,9 @@
 // Window evaluation of the Haar-cascade dense phase, shared by the dense
-// kernels (pyramid_dense.cu, dense_level.cu).
+// kernels (pyramid_dense.cu, dense_level.cu) in two forms: eval_window reads
+// the cascade's feature and weak-tree tables from device memory (the row-
+// strip kernel), eval_records reads per-level tree records with precomputed
+// corner offsets from shared memory (the pyramid kernel and the tilted
+// evaluation).
 //
 // Given a window's origin in the integral tables of its level (uint32,
 // wraparound), it computes the variance normalization and runs the dense
@@ -138,6 +142,93 @@ __device__ __forceinline__ bool eval_window(const uint32_t* iw,
   }
   *vnf_out = vnf;
   return alive;
+}
+
+// ------------------------------------------------------------ tree records
+// A weak tree as the record evaluator reads it (ops/cuda/dense_cuda.py,
+// tile_records), for tables of row length `pitch`: its root, left and
+// right features, each n rects, tilted flag, the 4 corner offsets of every
+// rect from the window's origin, and the rects' weights; then thr0, thrL,
+// thrR, leafL0, leafL1, leafR0, leafR1 and the stage. The kernels copy the
+// records of a level to shared memory: every window reads the same ones
+// (warp-uniform), and as dependent loads from device memory through L1
+// they took a third of the tilted evaluation's time on an H100.
+constexpr int kFeatWords = 2 + 5 * kMaxRects;
+constexpr int kTreeWords = 3 * kFeatWords + kWeakF + 1;
+
+// One feature of a window: per rect t[o0] - t[o1] - t[o2] + t[o3] on the
+// sum or (kTilted and the feature's flag) the tilted table (both rect
+// kinds are + - - + of 4 corners), times its weight, summed in rect order
+// (feature_value's arithmetic).
+template <bool kTilted>
+__device__ __forceinline__ float record_feature(const int* f,
+                                                const uint32_t* iw,
+                                                const uint32_t* tw) {
+  const uint32_t* t = (kTilted && f[1]) ? tw : iw;
+  const float* w = reinterpret_cast<const float*>(f + 2 + 4 * kMaxRects);
+  float val = 0.0f;
+  for (int r = 0; r < f[0]; ++r) {
+    const int* o = f + 2 + 4 * r;
+    const uint32_t s = t[o[0]] - t[o[1]] - t[o[2]] + t[o[3]];
+    const float term =
+        __fmul_rn(static_cast<float>(static_cast<int32_t>(s)), w[r]);
+    val = (r == 0) ? term : __fadd_rn(val, term);
+  }
+  return val;
+}
+
+// The variance normalization factor and the verdict of one window.
+struct Window {
+  float vnf;
+  bool alive;
+};
+
+// One window over the tree records `trees` [n_weak][kTreeWords] and the
+// stage thresholds `thr` (both in shared memory): iw, qw, tw point at the
+// window's origin in the sum, squared-sum and tilted tables of row length
+// `pitch` (tw is not read unless kTilted). eval_window's arithmetic and
+// order. Compiled here, the tilted evaluation keeps 8 bytes of stack at
+// 32 registers (its inline copy before kept none) and takes 3% longer on an
+// H100; neither __restrict__ pointers nor a by-value result changed that.
+template <bool kTilted>
+__device__ __forceinline__ Window eval_records(
+    const int* trees, int n_weak, const float* thr, int n_stages,
+    const uint32_t* iw, const uint32_t* qw, const uint32_t* tw, int pitch,
+    int norm_w, int norm_h, float norm_area, float var_thr) {
+  float vnf;
+  bool alive =
+      norm_window(iw, qw, pitch, norm_w, norm_h, norm_area, var_thr, &vnf);
+  int k = 0;
+  for (int s = 0; s < n_stages && alive; ++s) {
+    float ssum = 0.0f;
+    for (; k < n_weak && trees[k * kTreeWords + kTreeWords - 1] == s; ++k) {
+      const int* tree = trees + k * kTreeWords;
+      const float* wf = reinterpret_cast<const float*>(tree + 3 * kFeatWords);
+      const float f0 = __fmul_rn(record_feature<kTilted>(tree, iw, tw), vnf);
+      const int side = (f0 < wf[0]) ? 1 : 2;  // left : right
+      const float child = __fmul_rn(
+          record_feature<kTilted>(tree + side * kFeatWords, iw, tw), vnf);
+      const float leaf =
+          (child < wf[side]) ? wf[1 + 2 * side] : wf[2 + 2 * side];
+      ssum = __fadd_rn(ssum, leaf);
+    }
+    alive = ssum >= thr[s];
+  }
+  return {vnf, alive};
+}
+
+// Copies a level's tree records and the stage thresholds to shared memory
+// (all threads of the block; the caller synchronises).
+__device__ __forceinline__ void stage_records(int* __restrict__ s_trees,
+                                              const int* __restrict__ trees,
+                                              int n_weak,
+                                              float* __restrict__ s_thr,
+                                              const float* __restrict__ thr,
+                                              int n_stages) {
+  for (int i = threadIdx.x; i < n_weak * kTreeWords; i += blockDim.x) {
+    s_trees[i] = trees[i];
+  }
+  for (int i = threadIdx.x; i < n_stages; i += blockDim.x) s_thr[i] = thr[i];
 }
 
 // Builds the sum and squared-sum tables of `rows` x `sw` pixels in place:

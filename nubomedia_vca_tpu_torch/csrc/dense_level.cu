@@ -52,14 +52,15 @@
 // h0] and the matching columns of ii, sq and iit at a fixed row length
 // `pitch` (a full tile's width) with 4-byte cp.async (a table row's pitch,
 // 4 (W + 1) B, is not 16-byte aligned, which TMA would need), and copies
-// the cascade's tree records (dense_level_cuda.py, tile_records) into
+// the cascade's tree records (dense_cuda.py, tile_records) into
 // shared memory beside them. A record holds each feature's corner offsets
 // for that pitch, so a rect is 4 shared-memory reads at precomputed
 // offsets. Every window reads the same records (warp-uniform); read from
 // device memory through L1, as dense_eval.cuh's evaluator does, these
 // dependent loads took a third of the evaluation's time on an H100. The
-// arithmetic and its order are dense_eval.cuh's (norm_window, then per
-// weak tree __fmul_rn / __fadd_rn, compare, stage sums, early exit).
+// evaluator is dense_eval.cuh's eval_records with tilted features, which
+// the pyramid kernel shares without them (norm_window, then per weak tree
+// __fmul_rn / __fadd_rn, compare, stage sums, early exit).
 // Compacting the survivors of stage 0 (a warp ballot into a shared list,
 // so that warps stay full as windows die) gained at most 5% and lost 3% on
 // the largest levels: a block then keeps fewer warps in flight to hide the
@@ -213,31 +214,9 @@ tilted_table_kernel(const uint32_t* __restrict__ ii_in, int H, int W,
 }
 
 // --------------------------------------------------------- tiled evaluation
-// A weak tree as the evaluation kernel reads it (dense_level_cuda.py,
-// tile_records): its root, left and right features, each n rects, tilted
-// flag, the 4 corner offsets of every rect from the window's origin in a
-// staged tile of row length `pitch`, and the rects' weights; then thr0,
-// thrL, thrR, leafL0, leafL1, leafR0, leafR1 and the stage.
-constexpr int kFeatWords = 2 + 5 * dense::kMaxRects;
-constexpr int kTreeWords = 3 * kFeatWords + dense::kWeakF + 1;
-
-// One feature of a window: per rect t[o0] - t[o1] - t[o2] + t[o3] on the
-// sum or tilted table (both rect kinds are + - - + of 4 corners), times its
-// weight, summed in rect order (dense_eval.cuh's feature_value).
-__device__ __forceinline__ float tile_feature(const int* f, const uint32_t* iw,
-                                              const uint32_t* tw) {
-  const uint32_t* t = f[1] ? tw : iw;
-  const float* w = reinterpret_cast<const float*>(f + 2 + 4 * dense::kMaxRects);
-  float val = 0.0f;
-  for (int r = 0; r < f[0]; ++r) {
-    const int* o = f + 2 + 4 * r;
-    const uint32_t s = t[o[0]] - t[o[1]] - t[o[2]] + t[o[3]];
-    const float term =
-        __fmul_rn(static_cast<float>(static_cast<int32_t>(s)), w[r]);
-    val = (r == 0) ? term : __fadd_rn(val, term);
-  }
-  return val;
-}
+// The tree records (dense_eval.cuh, eval_records) carry corner offsets for
+// a staged tile of row length `pitch`.
+using dense::kTreeWords;
 
 __global__ void __launch_bounds__(kEvalThreads)
 tilted_eval_kernel(const uint32_t* __restrict__ ii,
@@ -278,46 +257,19 @@ tilted_eval_kernel(const uint32_t* __restrict__ ii,
     }
   }
   cp_async_commit();
-  // the cascade's records: every window of the tile reads them (warp-
-  // uniform), and from shared memory they cost less than from L1
-  for (int i = threadIdx.x; i < n_weak * kTreeWords; i += blockDim.x) {
-    s_trees[i] = trees[i];
-  }
-  for (int i = threadIdx.x; i < n_stages; i += blockDim.x) {
-    s_thr[i] = stage_thr[i];
-  }
+  dense::stage_records(s_trees, trees, n_weak, s_thr, stage_thr, n_stages);
   cp_async_wait<0>();
   __syncthreads();
 
   for (int w = threadIdx.x; w < n_rows * n_cols; w += blockDim.x) {
     const int r = w / n_cols, c = w - r * n_cols;
     const int origin = r * step * pitch + c * step;
-    const uint32_t* iw = s_ii + origin;
-    const uint32_t* tw = s_iit + origin;
-    float vnf;
-    bool alive = dense::norm_window(iw, s_sq + origin, pitch, norm_w, norm_h,
-                                    norm_area, var_thr, &vnf);
-    int k = 0;
-    for (int s = 0; s < n_stages && alive; ++s) {
-      float ssum = 0.0f;
-      for (; k < n_weak && s_trees[k * kTreeWords + kTreeWords - 1] == s;
-           ++k) {
-        const int* tree = s_trees + k * kTreeWords;
-        const float* wf =
-            reinterpret_cast<const float*>(tree + 3 * kFeatWords);
-        const float f0 = __fmul_rn(tile_feature(tree, iw, tw), vnf);
-        const int side = (f0 < wf[0]) ? 1 : 2;  // left : right
-        const float child =
-            __fmul_rn(tile_feature(tree + side * kFeatWords, iw, tw), vnf);
-        const float leaf =
-            (child < wf[side]) ? wf[1 + 2 * side] : wf[2 + 2 * side];
-        ssum = __fadd_rn(ssum, leaf);
-      }
-      alive = ssum >= s_thr[s];
-    }
+    const dense::Window win = dense::eval_records<true>(
+        s_trees, n_weak, s_thr, n_stages, s_ii + origin, s_sq + origin,
+        s_iit + origin, pitch, norm_w, norm_h, norm_area, var_thr);
     const size_t o = (static_cast<size_t>(b) * ny + iy0 + r) * nx + ix0 + c;
-    vnf_out[o] = vnf;
-    alive_out[o] = alive ? 1 : 0;
+    vnf_out[o] = win.vnf;
+    alive_out[o] = win.alive ? 1 : 0;
   }
 }
 

@@ -12,18 +12,37 @@
 //   2. builds the sum and squared-sum integral tables in shared memory, in
 //      uint32 (wraparound) arithmetic; no table leaves the block;
 //   3. per window of the level's ystep-strided grid, the variance
-//      normalization and the first n_dense stages (dense_eval.cuh, which
-//      also states the exactness rules);
+//      normalization and the first n_dense stages (dense_eval.cuh's
+//      eval_records, which the tilted evaluation shares);
 //   4. writes vnf [B,ny,nx] f32 and alive [B,ny,nx] u8.
 //
 // What bounds it: a 720p frame brings a 160x90 work image (14.4 KB) in and
 // a few KB of maps out, so device-memory traffic is negligible. The work is
-// integer adds and shared-memory reads: the two tables (up to 161*121*8 B
-// = 156 KB at 160x120) and about 6.6k strided windows per 720p frame, each
-// reading 4 corners per rect of up to 40 weak trees. The layout keeps
-// everything a level needs in one block's shared memory (opt-in above
-// 48 KB), one block per (level, frame) so a batch of 64 frames fills the
-// 132 SMs with 7 x 64 blocks, and one thread per strided window.
+// integer adds and shared-memory reads: about 6.6k strided windows per 720p
+// frame (the face engine), each reading 4 corners per rect of up to 40 weak
+// trees, and the tables' prefix sums.
+//
+// Layout: one block per (band, frame). The host plan (dense_cuda.py,
+// PyramidDensePlan) cuts every level into bands of whole window rows with
+// similar window counts — a large level many, a small level one — and
+// lists them as work items. A block resizes only its band's level rows
+// plus the window_h - 1 halo that completes its last windows, builds
+// band-local tables, and evaluates the band's windows. A rect sum is a
+// 4-corner difference, so a band-local table gives the level table's sums
+// (uint32 wraparound) and the results are bit for bit those of a
+// whole-level table. Shared memory is sized by the largest band, not the
+// largest level (the face plan: about 57 KB instead of 117 KB), so several
+// blocks share an SM and the work is balanced across them. Each level image
+// row is written by the one band that owns it (rows [row0, own1)).
+//   - Row prefix sums: one warp per band row, 32 pixels a step, an
+//     inclusive warp scan (__shfl_up_sync) plus the running carry; the
+//     resize of the row's pixels happens in the same pass. Column prefix
+//     sums: one thread per column over the band's rows (a few dozen).
+//   - The cascade's tree records (dense_cuda.tile_records with the
+//     level's row length, sw + 1) and stage thresholds are copied to shared
+//     memory: every window reads the same ones (warp-uniform), and read
+//     through L1 as dependent loads they took a third of the tilted
+//     evaluation's time on an H100.
 
 #include <cuda_runtime.h>
 
@@ -35,103 +54,151 @@ namespace {
 
 // Per-level int32 record; must match LEVEL_FIELDS in ops/cuda/dense_cuda.py.
 constexpr int kSw = 0, kSh = 1, kStep = 2, kNx = 3, kNy = 4, kSame = 5,
-              kImgBase = 6, kMapBase = 7, kRxOff = 8, kRyOff = 9,
-              kLevelFields = 10;
+              kImgBase = 6, kMapBase = 7, kRxOff = 8, kRyOff = 9, kRecOff = 10,
+              kLevelFields = 11;
+// Per-band int32 record; must match ITEM_FIELDS in ops/cuda/dense_cuda.py.
+constexpr int kLevel = 0, kIy0 = 1, kNRows = 2, kRow0 = 3, kRows = 4,
+              kOwn1 = 5, kItemFields = 6;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kThreads)
-pyramid_dense_kernel(const uint8_t* __restrict__ work, int H, int W,
-                     const int* __restrict__ levels,
-                     const int* __restrict__ rtab, DENSE_CASCADE_PARAMS,
-                     uint8_t* __restrict__ img_out,
-                     float* __restrict__ vnf_out,
-                     uint8_t* __restrict__ alive_out) {
-  extern __shared__ uint32_t smem[];
-  const int* L = levels + blockIdx.x * kLevelFields;
+pyramid_band_kernel(const uint8_t* __restrict__ work, int H, int W,
+                    const int* __restrict__ levels,
+                    const int* __restrict__ items,
+                    const int* __restrict__ rtab,
+                    const int* __restrict__ trees, int n_weak,
+                    const float* __restrict__ stage_thr, int n_stages,
+                    int norm_w, int norm_h, float norm_area, float var_thr,
+                    uint8_t* __restrict__ img_out,
+                    float* __restrict__ vnf_out,
+                    uint8_t* __restrict__ alive_out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int* it = items + blockIdx.x * kItemFields;
+  const int* L = levels + it[kLevel] * kLevelFields;
   const int sw = L[kSw], sh = L[kSh], step = L[kStep], nx = L[kNx],
             ny = L[kNy];
   const bool same = L[kSame] != 0;
+  const int iy0 = it[kIy0], n_rows = it[kNRows], row0 = it[kRow0],
+            rows = it[kRows], own1 = it[kOwn1];
   const int b = blockIdx.y, B = gridDim.y;
   const int w1 = sw + 1;
-  uint32_t* ii = smem;
-  uint32_t* sq = smem + (sh + 1) * w1;
+  uint32_t* ii = smem;                                   // [rows+1][w1]
+  uint32_t* sq = ii + (rows + 1) * w1;
+  int* s_trees = reinterpret_cast<int*>(sq + (rows + 1) * w1);
+  float* s_thr = reinterpret_cast<float*>(s_trees + n_weak * dense::kTreeWords);
   const uint8_t* src = work + static_cast<size_t>(b) * H * W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // 1. zero top row and left column; level pixels (and their squares) at
-  //    (y+1, x+1)
-  for (int i = threadIdx.x; i < w1; i += blockDim.x) {
+  dense::stage_records(s_trees, trees + L[kRecOff], n_weak, s_thr, stage_thr,
+                       n_stages);
+  for (int i = threadIdx.x; i < w1; i += kThreads) {
     ii[i] = 0u;
     sq[i] = 0u;
   }
-  for (int y = threadIdx.x; y < sh; y += blockDim.x) {
-    ii[(y + 1) * w1] = 0u;
-    sq[(y + 1) * w1] = 0u;
-  }
+
+  // 1.-2. resize a band row and scan it, one warp per row
   const int* rx = rtab + L[kRxOff];  // s0[sw], s1[sw], c0[sw], c1[sw]
   const int* ry = rtab + L[kRyOff];  // s0[sh], s1[sh], c0[sh], c1[sh]
   uint8_t* img_l = img_out + static_cast<size_t>(B) * L[kImgBase] +
                    static_cast<size_t>(b) * sh * sw;
-  for (int i = threadIdx.x; i < sh * sw; i += blockDim.x) {
-    const int y = i / sw, x = i - y * sw;
-    uint32_t p;
-    if (same) {
-      p = src[y * W + x];
-    } else {
-      const int x0 = rx[x], x1 = rx[sw + x];
-      const int cx0 = rx[2 * sw + x], cx1 = rx[3 * sw + x];
-      const uint8_t* r0 = src + ry[y] * W;
-      const uint8_t* r1 = src + ry[sh + y] * W;
-      const int h0 = r0[x0] * cx0 + r0[x1] * cx1;  // Q8
-      const int h1 = r1[x0] * cx0 + r1[x1] * cx1;
-      const int v = h0 * ry[2 * sh + y] + h1 * ry[3 * sh + y];  // Q16
-      p = static_cast<uint32_t>(min(max((v + (1 << 15)) >> 16, 0), 255));
-      img_l[i] = static_cast<uint8_t>(p);
+  for (int r = warp; r < rows; r += kWarps) {
+    const int y = row0 + r;
+    const bool own = !same && y < own1;
+    const uint8_t* r0 = src + (same ? y : ry[y]) * W;
+    const uint8_t* r1 = same ? r0 : src + ry[sh + y] * W;
+    const int cy0 = same ? 0 : ry[2 * sh + y];
+    const int cy1 = same ? 0 : ry[3 * sh + y];
+    uint32_t* oi = ii + (r + 1) * w1;
+    uint32_t* oq = sq + (r + 1) * w1;
+    if (lane == 0) {
+      oi[0] = 0u;
+      oq[0] = 0u;
     }
-    ii[(y + 1) * w1 + x + 1] = p;
-    sq[(y + 1) * w1 + x + 1] = p * p;
+    uint32_t ci = 0u, cq = 0u;
+    for (int x0 = 0; x0 < sw; x0 += 32) {
+      const int x = x0 + lane;
+      uint32_t p = 0u;
+      if (x < sw) {
+        if (same) {
+          p = r0[x];
+        } else {
+          const int x0s = rx[x], x1s = rx[sw + x];
+          const int cx0 = rx[2 * sw + x], cx1 = rx[3 * sw + x];
+          const int h0 = r0[x0s] * cx0 + r0[x1s] * cx1;  // Q8
+          const int h1 = r1[x0s] * cx0 + r1[x1s] * cx1;
+          const int v = h0 * cy0 + h1 * cy1;              // Q16
+          p = static_cast<uint32_t>(min(max((v + (1 << 15)) >> 16, 0), 255));
+          if (own) img_l[y * sw + x] = static_cast<uint8_t>(p);
+        }
+      }
+      uint32_t a = p, q = p * p;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t na = __shfl_up_sync(kFull, a, o);
+        const uint32_t nq = __shfl_up_sync(kFull, q, o);
+        if (lane >= o) {
+          a += na;
+          q += nq;
+        }
+      }
+      if (x < sw) {
+        oi[x + 1] = ci + a;
+        oq[x + 1] = cq + q;
+      }
+      ci += __shfl_sync(kFull, a, 31);
+      cq += __shfl_sync(kFull, q, 31);
+    }
+  }
+  __syncthreads();
+  // column prefix over the band's rows
+  for (int x = 1 + threadIdx.x; x <= sw; x += kThreads) {
+    uint32_t a = 0u, c = 0u;
+    for (int k = w1 + x; k <= rows * w1 + x; k += w1) {
+      a += ii[k];
+      ii[k] = a;
+      c += sq[k];
+      sq[k] = c;
+    }
   }
   __syncthreads();
 
-  // 2. prefix sums along rows, then along columns (uint32 wraparound)
-  dense::prefix_tables(ii, sq, sh, sw);
-
-  // 3.-5. one thread per window of the strided grid
+  // 3.-4. one thread per window of the band
   const size_t map0 = static_cast<size_t>(B) * L[kMapBase] +
-                      static_cast<size_t>(b) * ny * nx;
-  for (int w = threadIdx.x; w < ny * nx; w += blockDim.x) {
-    const int iy = w / nx, ix = w - iy * nx;
-    const int origin = iy * step * w1 + ix * step;
-    float vnf;
-    const bool alive =
-        dense::eval_window<false>(ii + origin, sq + origin, nullptr, w1,
-                                  DENSE_CASCADE_ARGS, &vnf);
-    vnf_out[map0 + w] = vnf;
-    alive_out[map0 + w] = alive ? 1 : 0;
+                      (static_cast<size_t>(b) * ny + iy0) * nx;
+  for (int w = threadIdx.x; w < n_rows * nx; w += kThreads) {
+    const int r = w / nx, ix = w - r * nx;
+    const int origin = r * step * w1 + ix * step;
+    const dense::Window win = dense::eval_records<false>(
+        s_trees, n_weak, s_thr, n_stages, ii + origin, sq + origin, nullptr,
+        w1, norm_w, norm_h, norm_area, var_thr);
+    vnf_out[map0 + w] = win.vnf;
+    alive_out[map0 + w] = win.alive ? 1 : 0;
   }
 }
 
 }  // namespace
 
-// Launches one block per (level, frame) on `stream`. Returns the CUDA
+// Launches one block per (band item, frame) on `stream`. Returns the CUDA
 // error code of the attribute call or of the launch (0 on success).
 extern "C" int pyramid_dense_launch(
     int device, void* stream, const uint8_t* work, int B, int H, int W,
-    const int* levels, int n_levels, const int* rtab, const int* feat_i,
-    const float* feat_w, const int* weak_i, const float* weak_f, int n_weak,
-    const float* stage_thr, int n_stages, int norm_w, int norm_h,
-    float norm_area, float var_thr, int smem_bytes, uint8_t* img_out,
-    float* vnf_out, uint8_t* alive_out) {
+    const int* levels, const int* items, int n_items, const int* rtab,
+    const int* trees, int n_weak, const float* stage_thr, int n_stages,
+    int norm_w, int norm_h, float norm_area, float var_thr, int smem_bytes,
+    uint8_t* img_out, float* vnf_out, uint8_t* alive_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(pyramid_dense_kernel,
+  err = cudaFuncSetAttribute(pyramid_band_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_levels, B);
-  pyramid_dense_kernel<<<grid, kThreads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      work, H, W, levels, rtab, DENSE_CASCADE_ARGS, img_out, vnf_out,
-      alive_out);
+  const dim3 grid(n_items, B);
+  pyramid_band_kernel<<<grid, kThreads, smem_bytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      work, H, W, levels, items, rtab, trees, n_weak, stage_thr, n_stages,
+      norm_w, norm_h, norm_area, var_thr, img_out, vnf_out, alive_out);
   return static_cast<int>(cudaGetLastError());
 }
 

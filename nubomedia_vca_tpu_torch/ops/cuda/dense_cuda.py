@@ -10,19 +10,25 @@ Port of the TPU kernel ``build_pyramid_dense_phase``
   plain PyTorch dense phase on given integral tables: the XLA dense phase
   of the JAX engine's ``_eval_level`` (``cascade/engine.py:549-585``) on
   the ystep-strided window grid. Shared with ``dense_level_cuda``;
+* ``tile_records`` — the dense block's weak trees with their corner
+  offsets for tables of a given row length, as the kernels' shared record
+  evaluator reads them (``csrc/dense_eval.cuh``, ``eval_records``);
 * ``PyramidDensePlan`` — the host tables of one set of levels (the JAX
-  kernel's ``lis`` chunk): level records and resize index/coefficient
-  tables;
+  kernel's ``lis`` chunk): level records, resize index/coefficient tables,
+  each level's tree records, and the work list of bands
+  (``pyramid_bands``) that the kernel's blocks take;
 * ``pyramid_dense_phase_reference`` — the plain version: per level
   ``resize_linear_exact``, ``integral_image``/``sq_integral_image`` and
-  ``DenseTables.evaluate``. It runs on any device;
+  ``DenseTables.evaluate`` on whole-level tables. It runs on any device;
 * ``pyramid_dense_phase`` — the wrapper: on a CPU tensor it runs the plain
   version, on a CUDA tensor it launches ``csrc/pyramid_dense.cu`` (one block
-  per (level, frame)) or raises. It never falls back.
+  per (band, frame)) or raises. It never falls back.
 
 Both return, per level, ``(img_l [B,sh,sw] uint8 | None, vnf [B,ny,nx]
 float32, alive [B,ny,nx] uint8)``; ``img_l`` is None for the unscaled level,
-whose image is the work image itself. The two agree bit for bit.
+whose image is the work image itself. The two agree bit for bit: a rect
+sum is a 4-corner difference, so band-local tables give the whole-level
+table's sums (uint32 wraparound).
 """
 
 from __future__ import annotations
@@ -40,17 +46,85 @@ from . import _build
 
 # Hopper's opt-in dynamic shared memory per block (227 KB).
 MAX_SMEM_BYTES = 232_448
-# Per-level int32 record read by the kernel (kSw..kRyOff in the .cu file).
+# Per-level int32 record read by the kernel (kSw..kRecOff in the .cu file).
 LEVEL_FIELDS = ("sw", "sh", "step", "nx", "ny", "same", "img_base",
-                "map_base", "rx_off", "ry_off")
+                "map_base", "rx_off", "ry_off", "rec_off")
+# Per-band int32 record (kLevel..kOwn1): the level, its first grid row and
+# grid rows, its first level row and level rows (the halo included), and
+# the end of the level rows whose image it writes.
+ITEM_FIELDS = ("level", "iy0", "n_rows", "row0", "rows", "own1")
 MAX_RECTS = 3        # rects per Haar feature (kMaxRects in dense_eval.cuh)
 MAX_GRID_Y = 65_535  # frames per launch (gridDim.y)
+# a weak tree's record (kTreeWords in dense_eval.cuh): its three features of
+# FEAT_WORDS, its 7 thresholds and leaves, its stage
+FEAT_WORDS = 2 + 5 * MAX_RECTS
+TREE_WORDS = 3 * FEAT_WORDS + 8
+# windows per band of the pyramid kernel: two a thread of a 256-thread block
+BAND_WINDOWS = 512
 
 
 def pyramid_smem_bytes(l: LevelSpec) -> int:
-    """Shared memory of one level in the pyramid kernel: its sum and
-    squared-sum tables, 4 B per element each."""
+    """Bytes of a level's whole sum and squared-sum tables, 4 B per element
+    each: the engine's route rule sends a non-tilted level to the pyramid
+    kernel when they fit one block's shared memory (the levels of one JAX
+    pyramid chunk), and larger ones to the row-strip kernel. The pyramid
+    kernel itself holds only a band's tables (``PyramidDensePlan``)."""
     return 2 * 4 * (l.sh + 1) * (l.sw + 1)
+
+
+def pyramid_bands(l: LevelSpec, win_h: int) -> list[tuple[int, int]]:
+    """The bands of level `l` in the pyramid kernel → (first grid row, grid
+    rows) each: about BAND_WINDOWS windows a band, and at least window_h level
+    rows a band, so that the halo (window_h - ystep rows) is at most about
+    the band's own rows; the level's grid rows split as evenly as that
+    count allows. A small level is one band."""
+    per = max(-(-BAND_WINDOWS // l.nx), -(-win_h // l.ystep))
+    return _split(l.ny, max(1, min(l.ny, int(l.ny / per + 0.5))))
+
+
+def _split(ny: int, n: int) -> list[tuple[int, int]]:
+    base, extra = divmod(ny, n)
+    bands, iy = [], 0
+    for k in range(n):
+        rows = base + (k < extra)
+        bands.append((iy, rows))
+        iy += rows
+    return bands
+
+
+def band_item(l: LevelSpec, win_h: int, iy0: int, n_rows: int) -> tuple:
+    """(row0, rows, own1) of a band: its first level row, the level rows it
+    resizes and tabulates (grid rows and halo; the last band runs to the
+    level's end) and the end of the rows whose image it writes."""
+    row0 = iy0 * l.ystep
+    if iy0 + n_rows == l.ny:
+        return row0, l.sh - row0, l.sh
+    return row0, (n_rows - 1) * l.ystep + win_h, (iy0 + n_rows) * l.ystep
+
+
+def tile_records(tables: "DenseTables", pitch: int) -> np.ndarray:
+    """The dense block's weak trees as the record evaluator reads them, for
+    tables of row length `pitch` → int32 [n_weak, TREE_WORDS]: per tree its
+    root, left and right features (n rects, tilted flag, the 4 corner
+    offsets of each rect from the window's origin, the rects' weights as
+    float32 bits), then thr0, thrL, thrR, the left and right leaves
+    (float32 bits) and the stage. Both rect kinds are the signed corner sum
+    t[o0] - t[o1] - t[o2] + t[o3]."""
+    fi, fw = tables.host["feat_i"], tables.host["feat_w"]
+    feats = np.zeros((len(fi), FEAT_WORDS), np.int32)
+    for f, rec in enumerate(fi):
+        feats[f, :2] = rec[0], rec[-1]
+        for r in range(rec[0]):
+            x, y, w, h = (int(v) for v in rec[1 + 4 * r:5 + 4 * r])
+            corners = ([(y, x), (y + w, x + w), (y + h, x - h),
+                        (y + w + h, x + w - h)] if rec[-1] else
+                       [(y, x), (y, x + w), (y + h, x), (y + h, x + w)])
+            feats[f, 2 + 4 * r:6 + 4 * r] = [cy * pitch + cx
+                                             for cy, cx in corners]
+    feats[:, 2 + 4 * MAX_RECTS:] = fw.view(np.int32)
+    wi, wf = tables.host["weak_i"], tables.host["weak_f"]
+    return np.concatenate([feats[wi[:, 0]], feats[wi[:, 1]], feats[wi[:, 2]],
+                           wf.view(np.int32), wi[:, 3:]], axis=1)
 
 
 class DenseTables:
@@ -202,7 +276,15 @@ class DenseTables:
 
 class PyramidDensePlan:
     """Host tables of the pyramid kernel over a set of levels of one engine
-    (the JAX kernel's chunk ``lis``): per-level records and resize tables."""
+    (the JAX kernel's chunk ``lis``): per-level records, resize tables and
+    tree records (corner offsets for the level's row length, sw + 1), and
+    the kernel's work list of bands (``items``, ITEM_FIELDS per band; the
+    bands of each level from ``pyramid_bands``, levels in order).
+
+    ``smem_bytes`` is the largest level's whole tables (the route rule,
+    ``check_fits``); ``band_smem_bytes`` is what a block of the kernel
+    holds: the largest band's two tables, the tree records and the stage
+    thresholds."""
 
     def __init__(self, image_size: tuple[int, int], levels: list[LevelSpec],
                  tables: DenseTables):
@@ -213,10 +295,14 @@ class PyramidDensePlan:
         self.image_w, self.image_h = image_size
         self.levels = tuple(levels)
         self.tables = tables
+        win_h = tables.window_h
+        n_rec = len(tables.host["weak_i"]) * TREE_WORDS
 
-        # per-level records and resize tables
+        # per-level records, resize tables and tree records; the bands
         lv = np.zeros((len(self.levels), len(LEVEL_FIELDS)), np.int32)
         rtab: list[np.ndarray] = []
+        recs: list[np.ndarray] = []
+        items: list[tuple] = []
         off = img_base = map_base = 0
         for li, l in enumerate(self.levels):
             same = (l.sw, l.sh) == (self.image_w, self.image_h)
@@ -228,7 +314,10 @@ class PyramidDensePlan:
                 rtab += [rx, ry]
                 off += rx.size + ry.size
             lv[li] = (l.sw, l.sh, l.ystep, l.nx, l.ny, int(same),
-                      img_base, map_base, rx_off, ry_off)
+                      img_base, map_base, rx_off, ry_off, li * n_rec)
+            recs.append(tile_records(tables, l.sw + 1).reshape(-1))
+            items += [(li, iy0, n, *band_item(l, win_h, iy0, n))
+                      for iy0, n in pyramid_bands(l, win_h)]
             if not same:
                 img_base += l.sh * l.sw
             map_base += l.ny * l.nx
@@ -236,16 +325,23 @@ class PyramidDensePlan:
         self.outputs = [(bool(r[5]), int(r[6]), int(r[7])) for r in lv]
         self.img_unit, self.map_unit = img_base, map_base
         self.smem_bytes = max(pyramid_smem_bytes(l) for l in self.levels)
+        self.items = np.asarray(items, np.int32).reshape(-1, len(ITEM_FIELDS))
+        self.band_smem_bytes = 4 * (n_rec + tables.n_dense) + max(
+            8 * (rows + 1) * (self.levels[li].sw + 1)
+            for li, _, _, _, rows, _ in self.items)
         self._host = dict(
             levels=lv,
+            items=self.items,
             rtab=(np.concatenate(rtab).astype(np.int32) if rtab
                   else np.zeros(1, np.int32)),
+            records=np.concatenate(recs).astype(np.int32),
         )
         self._device: dict[torch.device, dict[str, torch.Tensor]] = {}
 
     def check_fits(self) -> None:
-        """Raise ValueError when a level's tables exceed one block's shared
-        memory (the engine routes such levels to the row-strip kernel)."""
+        """Raise ValueError when a level's whole tables exceed one block's
+        shared memory (the engine routes such levels to the row-strip
+        kernel)."""
         if self.smem_bytes > MAX_SMEM_BYTES:
             big = max(self.levels, key=pyramid_smem_bytes)
             raise ValueError(
@@ -304,8 +400,9 @@ CASCADE_ARGTYPES = [
 _LAUNCH_ARGTYPES = [
     _I, _P,                      # device, stream
     _P, _I, _I, _I,              # work, B, H, W
-    _P, _I, _P,                  # levels, n_levels, rtab
-    *CASCADE_ARGTYPES,
+    _P, _P, _I, _P,              # levels, items, n_items, rtab
+    _P, _I, _P, _I,              # trees, n_weak, stage_thr, n_stages
+    _I, _I, _F, _F,              # norm_w, norm_h, norm_area, var_thr
     _I,                          # smem
     _P, _P, _P,                  # img_out, vnf_out, alive_out
 ]
@@ -337,17 +434,29 @@ def _launch(work: torch.Tensor, plan: PyramidDensePlan):
                           device=dev)
     vnf_out = torch.empty(B * plan.map_unit, dtype=torch.float32, device=dev)
     alive_out = torch.empty(B * plan.map_unit, dtype=torch.uint8, device=dev)
+    tabs = plan.tables
     rc = lib.pyramid_dense_launch(
         device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
         work.data_ptr(), B, plan.image_h, plan.image_w,
-        t["levels"].data_ptr(), len(plan.levels), t["rtab"].data_ptr(),
-        *plan.tables.launch_args(dev), plan.smem_bytes,
-        img_out.data_ptr(), vnf_out.data_ptr(), alive_out.data_ptr())
+        t["levels"].data_ptr(), t["items"].data_ptr(), len(plan.items),
+        t["rtab"].data_ptr(), t["records"].data_ptr(),
+        len(tabs.host["weak_i"]),
+        tabs.device_tables(dev)["stage_thr"].data_ptr(), tabs.n_dense,
+        tabs.norm_w, tabs.norm_h, tabs.norm_area, tabs.var_thr,
+        plan.band_smem_bytes, img_out.data_ptr(), vnf_out.data_ptr(),
+        alive_out.data_ptr())
     if rc != 0:
         msg = lib.pyramid_dense_error_string(rc).decode()
         raise RuntimeError(f"pyramid_dense kernel launch failed: {msg} ({rc})")
     pyramid_dense_phase.launches += 1
+    return level_outputs(plan, B, img_out, vnf_out, alive_out)
 
+
+def level_outputs(plan: PyramidDensePlan, B: int, img_out: torch.Tensor,
+                  vnf_out: torch.Tensor, alive_out: torch.Tensor):
+    """The kernel's flat outputs as per-level (img_l | None, vnf, alive)
+    views: each level's block of B frames at B times its per-frame
+    offset."""
     out = []
     for l, (same, img_base, map_base) in zip(plan.levels, plan.outputs):
         img_l = None

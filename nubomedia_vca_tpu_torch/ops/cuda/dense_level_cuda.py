@@ -42,17 +42,13 @@ from ...cascade.pyramid import LevelSpec
 from ..integral import (integral_image, sq_integral_image,
                         tilted_from_integral, tilted_integral_image)
 from . import _build
-from .dense_cuda import (CASCADE_ARGTYPES, MAX_GRID_Y, MAX_RECTS,
-                         MAX_SMEM_BYTES, DenseTables, device_index)
+from .dense_cuda import (CASCADE_ARGTYPES, MAX_GRID_Y, MAX_SMEM_BYTES,
+                         TREE_WORDS, DenseTables, device_index, tile_records)
 from .integral_cuda import integral_tables
 
 # strided windows per evaluation tile (rows, columns): one thread per
 # window of a full tile (kEvalThreads in csrc/dense_level.cu)
 TILE = (16, 16)
-# a weak tree's record in the evaluation kernel (kTreeWords): its three
-# features of FEAT_WORDS, its 7 thresholds and leaves, its stage
-FEAT_WORDS = 2 + 5 * MAX_RECTS
-TREE_WORDS = 3 * FEAT_WORDS + 8
 
 
 def tile_shape(l: LevelSpec, tables: DenseTables,
@@ -73,31 +69,6 @@ def tile_smem_bytes(l: LevelSpec, tables: DenseTables,
     rows, cols = tile_shape(l, tables, tile)
     n_weak = len(tables.host["weak_i"])
     return 4 * (3 * rows * cols + n_weak * TREE_WORDS + tables.n_dense)
-
-
-def tile_records(tables: DenseTables, pitch: int) -> np.ndarray:
-    """The dense block's weak trees as the evaluation kernel reads them, for
-    staged tiles of row length `pitch` → int32 [n_weak, TREE_WORDS]: per
-    tree its root, left and right features (n rects, tilted flag, the 4
-    corner offsets of each rect from the window's origin, the rects'
-    weights as float32 bits), then thr0, thrL, thrR, the left and right
-    leaves (float32 bits) and the stage. Both rect kinds are the signed
-    corner sum t[o0] - t[o1] - t[o2] + t[o3]."""
-    fi, fw = tables.host["feat_i"], tables.host["feat_w"]
-    feats = np.zeros((len(fi), FEAT_WORDS), np.int32)
-    for f, rec in enumerate(fi):
-        feats[f, :2] = rec[0], rec[-1]
-        for r in range(rec[0]):
-            x, y, w, h = (int(v) for v in rec[1 + 4 * r:5 + 4 * r])
-            corners = ([(y, x), (y + w, x + w), (y + h, x - h),
-                        (y + w + h, x + w - h)] if rec[-1] else
-                       [(y, x), (y, x + w), (y + h, x), (y + h, x + w)])
-            feats[f, 2 + 4 * r:6 + 4 * r] = [cy * pitch + cx
-                                             for cy, cx in corners]
-    feats[:, 2 + 4 * MAX_RECTS:] = fw.view(np.int32)
-    wi, wf = tables.host["weak_i"], tables.host["weak_f"]
-    return np.concatenate([feats[wi[:, 0]], feats[wi[:, 1]], feats[wi[:, 2]],
-                           wf.view(np.int32), wi[:, 3:]], axis=1)
 
 
 def tilted_fits(l: LevelSpec, tables: DenseTables,

@@ -80,6 +80,23 @@ def test_kernel_equals_plain_version(cuda_device, size, factor):
     assert sum(int(a.sum()) for _, _, a in got) > 0
 
 
+def test_kernel_equals_plain_version_on_nose_plan(cuda_device):
+    """The nose's 20-level launch of the part chain at 720p (320x180 part
+    image, levels 219x123 .. 36x20 in 43 bands): level images, vnf and
+    alive exactly, on faces and noise."""
+    nose = NoseDetector((1280, 720), device=cuda_device).part_engines["nose"]
+    plan = nose._plan
+    assert len(plan.levels) == 20 and len(plan.items) == 43
+    work = _part_work((320, 180)).to(cuda_device)
+    before = dense_cuda.pyramid_dense_phase.launches
+    got = dense_cuda.pyramid_dense_phase(work, plan)
+    assert dense_cuda.pyramid_dense_phase.launches == before + 1
+    want = dense_cuda.pyramid_dense_phase_reference(work, plan)
+    torch.cuda.synchronize()
+    _levels_equal(got, want)
+    assert sum(int(a.sum()) for _, _, a in got) > 0
+
+
 def test_kernel_wrapper_checks_inputs(cuda_device):
     eng = CascadeEngine(load_cascade(DEFAULT_FACE_CASCADE), (160, 90),
                         device=cuda_device)
@@ -218,7 +235,9 @@ def test_strip_kernel_equals_plain_version(cuda_device):
         assert got[1].sum() > 0
 
 
-@pytest.mark.parametrize("hw", [(180, 320), (112, 199), (37, 53), (1, 1)])
+@pytest.mark.parametrize("hw", [(180, 320), (112, 199), (37, 53), (1, 1),
+                                (15, 320), (16, 320), (17, 320), (33, 320),
+                                (720, 1280)])
 def test_integral_kernel_equals_plain_version(cuda_device, hw):
     img = torch.from_numpy(np.random.RandomState(sum(hw)).randint(
         0, 256, (5,) + hw, np.uint8)).to(cuda_device)
@@ -230,6 +249,21 @@ def test_integral_kernel_equals_plain_version(cuda_device, hw):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_integral_kernel_reuses_its_scratch(cuda_device):
+    """Calls in a row on one stream share the look-back scratch (new
+    epoch, no clearing), and a larger call grows it: every result exact."""
+    rng = np.random.RandomState(4)
+    for shape in [(64, 180, 320), (2, 40, 600), (64, 180, 320),
+                  (64, 199, 112), (3, 17, 320), (64, 180, 320)]:
+        img = torch.from_numpy(rng.randint(0, 256, shape, np.uint8)).to(
+            cuda_device)
+        got = integral_cuda.integral_tables(img)
+        want = integral_cuda.integral_tables_reference(img)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), shape
 
 
 @pytest.mark.parametrize("detector", [NoseDetector, MouthDetector,

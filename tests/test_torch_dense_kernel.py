@@ -29,6 +29,7 @@ from nubomedia_vca_tpu.ops.pallas.dense_pallas import (
     build_pyramid_dense_phase)
 from nubomedia_vca_tpu_torch.cascade.engine import CascadeEngine
 from nubomedia_vca_tpu_torch.cascade.xml_loader import cascade_from_numpy
+from nubomedia_vca_tpu_torch.models import NoseDetector
 from nubomedia_vca_tpu_torch.ops.cuda import _build, dense_cuda
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
@@ -135,17 +136,19 @@ def test_plain_version_matches_pallas_kernel(engines, work):
 
 
 def _kernel_mirror(plan, work):
-    """numpy mirror of csrc/pyramid_dense.cu on the plan's host tables:
-    per level, the 2-tap resize from the packed index/coefficient tables,
-    uint32 integral tables, and the window loop over the strided grid with
-    the weak-tree records (float32 throughout)."""
+    """numpy mirror of the pyramid kernel's level records and resize
+    tables, over whole levels: per level, the 2-tap resize from the packed
+    index/coefficient tables, uint32 integral tables, and the window loop
+    over the strided grid with the cascade's feature and weak-tree tables
+    (float32 throughout). The band geometry and the tree records are
+    mirrored by _band_mirror."""
     t = {**plan._host, **plan.tables.host}
     tabs = plan.tables
     f32 = np.float32
     B, H, W = work.shape
     out = []
     for rec in t["levels"]:
-        sw, sh, step, nx, ny, same, _, _, rxo, ryo = (int(v) for v in rec)
+        sw, sh, step, nx, ny, same, _, _, rxo, ryo, _ = (int(v) for v in rec)
         if same:
             img = work.astype(np.int64)
         else:
@@ -210,6 +213,155 @@ def test_kernel_tables_reproduce_plain_version(engines, work):
             assert np.array_equal(gi, wi.numpy())
         assert np.array_equal(gv, wv.numpy())
         assert np.array_equal(ga, wa.numpy())
+
+
+def _records_eval(recs, tabs, ii, sq, origin, pitch):
+    """The record evaluator (dense_eval.cuh, eval_records) on flat uint32
+    tables [B, rows * pitch] at flat window origins: corner offsets from
+    the tree records, float32 throughout."""
+    f32 = np.float32
+
+    def feature(f):
+        assert f[1] == 0                  # no tilted feature
+        val = None
+        for r in range(f[0]):
+            o = f[2 + 4 * r:6 + 4 * r]
+            s = (ii[:, origin + o[0]] - ii[:, origin + o[1]]
+                 - ii[:, origin + o[2]] + ii[:, origin + o[3]])
+            term = s.view(np.int32).astype(f32) * f[14 + r:15 + r].view(f32)
+            val = term if val is None else val + term
+        return val
+
+    n0, n2 = pitch + 1, (1 + tabs.norm_h) * pitch + 1
+
+    def norm_rect(t):
+        return (t[:, origin + n0] - t[:, origin + n0 + tabs.norm_w]
+                - t[:, origin + n2] + t[:, origin + n2 + tabs.norm_w])
+
+    vf = norm_rect(ii).view(np.int32).astype(f32)
+    nf = f32(tabs.norm_area) * norm_rect(sq).astype(f32) - vf * vf
+    alive = nf > f32(tabs.var_thr)
+    vnf = np.where(alive, f32(1) / np.sqrt(np.maximum(nf, f32(1e-20))),
+                   f32(1))
+    fw = dense_cuda.FEAT_WORDS
+    for st in range(tabs.n_dense):
+        ssum = np.zeros_like(vnf)
+        for tree in recs[recs[:, -1] == st]:
+            wf = tree[3 * fw:-1].view(f32)
+            v0, vl, vr = (feature(tree[j * fw:(j + 1) * fw]) * vnf
+                          for j in range(3))
+            lv = np.where(vl < wf[1], wf[3], wf[4])
+            rv = np.where(vr < wf[2], wf[5], wf[6])
+            ssum = ssum + np.where(v0 < wf[0], lv, rv)
+        alive &= ssum >= tabs.host["stage_thr"][st]
+    return vnf, alive.astype(np.uint8)
+
+
+def _band_mirror(plan, work, records):
+    """numpy mirror of csrc/pyramid_dense.cu: per (band, frame) block the
+    2-tap resize of the band's level rows (halo included) from the packed
+    tables, band-local uint32 tables, the band's level-image rows and the
+    record evaluation of its windows → per level (img | None, vnf, alive)
+    and the number of times each window and each image row was written."""
+    t, tabs = plan._host, plan.tables
+    B = work.shape[0]
+    src = work.astype(np.int64)
+    out, n_win, n_img = [], [], []
+    for l in plan.levels:
+        out.append([np.zeros((B, l.sh, l.sw), np.uint8),
+                    np.zeros((B, l.ny, l.nx), np.float32),
+                    np.zeros((B, l.ny, l.nx), np.uint8)])
+        n_win.append(np.zeros((l.ny, l.nx), np.int64))
+        n_img.append(np.zeros(l.sh, np.int64))
+    n_rec = len(tabs.host["weak_i"]) * dense_cuda.TREE_WORDS
+    for li, iy0, n_rows, row0, rows, own1 in plan.items.tolist():
+        sw, sh, step, nx, _, same, _, _, rxo, ryo, reco = (
+            int(v) for v in t["levels"][li])
+        ys = np.arange(row0, row0 + rows)
+        if same:
+            px = src[:, ys]
+        else:
+            rx = t["rtab"][rxo:rxo + 4 * sw].reshape(4, sw).astype(np.int64)
+            ry = t["rtab"][ryo:ryo + 4 * sh].reshape(4, sh)[:, ys].astype(
+                np.int64)
+            h = src[:, :, rx[0]] * rx[2] + src[:, :, rx[1]] * rx[3]
+            v = h[:, ry[0]] * ry[2][:, None] + h[:, ry[1]] * ry[3][:, None]
+            px = np.clip((v + (1 << 15)) >> 16, 0, 255)
+            own = ys[ys < own1]
+            out[li][0][:, own] = px[:, :len(own)]
+            n_img[li][own] += 1
+        ii = np.zeros((B, rows + 1, sw + 1), np.uint32)
+        sq = np.zeros_like(ii)
+        ii[:, 1:, 1:] = px.cumsum(-1).cumsum(-2)
+        sq[:, 1:, 1:] = (px * px).cumsum(-1).cumsum(-2)
+        origin = ((np.arange(n_rows) * step)[:, None] * (sw + 1)
+                  + (np.arange(nx) * step)[None, :])
+        vnf, alive = _records_eval(
+            records[reco:reco + n_rec].reshape(-1, dense_cuda.TREE_WORDS),
+            tabs, ii.reshape(B, -1), sq.reshape(B, -1), origin, sw + 1)
+        out[li][1][:, iy0:iy0 + n_rows] = vnf
+        out[li][2][:, iy0:iy0 + n_rows] = alive
+        n_win[li][iy0:iy0 + n_rows] += 1
+    for li, l in enumerate(plan.levels):
+        if t["levels"][li][5]:
+            out[li][0] = None
+    return out, n_win, n_img
+
+
+@pytest.fixture(scope="module")
+def band_plans(engines, work):
+    """(plan, work images) of the pyramid kernel: the face engine at 160x90
+    and 160x120 (720p and 480p frames), and the nose's 20-level launch of
+    the part chain at 320x180; faces and noise."""
+    _, peng = engines
+    face120 = CascadeEngine(peng.cascade, (160, 120), 1.25, device="cpu")
+    nose = NoseDetector((1280, 720), device="cpu").part_engines["nose"]
+
+    def frames(size, frame_size, seed):
+        face = equalize_hist(resize_linear_exact(
+            torch.from_numpy(face_clip(1, *frame_size)), size))
+        noise = np.random.RandomState(seed).randint(
+            0, 256, (1, size[1], size[0]), np.uint8)
+        return np.concatenate([face.numpy(), noise])
+
+    return {"face 160x90": (peng._plan, work),
+            "face 160x120": (face120._plan, frames((160, 120), (640, 480), 3)),
+            "nose 320x180": (nose._plan, frames((320, 180), (1280, 720), 4))}
+
+
+@pytest.mark.parametrize("name,n_levels,n_bands", [
+    ("face 160x90", 7, 13), ("face 160x120", 9, 18),
+    ("nose 320x180", 20, 43)])
+def test_band_mirror_reproduces_plain_version(band_plans, name, n_levels,
+                                              n_bands):
+    """The pyramid kernel's band geometry, mirrored in numpy: each window
+    of each level is evaluated in exactly one band and each level-image row
+    written by exactly one; band-local tables and the record evaluation
+    equal the plain version's whole-level result exactly. A corner offset
+    moved by one in the tree records breaks the equality."""
+    plan, work = band_plans[name]
+    assert (len(plan.levels), len(plan.items)) == (n_levels, n_bands)
+    assert plan.band_smem_bytes < plan.smem_bytes // 2
+    plan.check_fits()
+    records = plan._host["records"]
+    got, n_win, n_img = _band_mirror(plan, work, records)
+    want = dense_cuda.pyramid_dense_phase_reference(torch.from_numpy(work),
+                                                    plan)
+    for li, ((gi, gv, ga), (wi, wv, wa)) in enumerate(zip(got, want)):
+        assert (n_win[li] == 1).all(), li
+        assert (gi is None) == (wi is None), li
+        if gi is not None:
+            assert (n_img[li] == 1).all(), li
+            assert np.array_equal(gi, wi.numpy()), li
+        assert np.array_equal(gv, wv.numpy()), li
+        assert np.array_equal(ga, wa.numpy()), li
+    assert sum(int(a.sum()) for _, _, a in want) > 0
+    bad = records.copy()
+    bad[2] += 1              # tree 0's root feature, first corner, level 0
+    got, _, _ = _band_mirror(plan, work, bad)
+    assert not all(np.array_equal(g[1], w[1].numpy())
+                   and np.array_equal(g[2], w[2].numpy())
+                   for g, w in zip(got, want))
 
 
 def test_wrapper_on_cpu_runs_plain_version(engines, work):

@@ -50,9 +50,11 @@ from nubomedia_vca_tpu_torch.cascade.xml_loader import (cascade_from_numpy,
                                                         load_cascade_xml as
                                                         port_load)
 from nubomedia_vca_tpu_torch.ops.cuda import dense_level_cuda, integral_cuda
-from nubomedia_vca_tpu_torch.ops.cuda.dense_cuda import MAX_SMEM_BYTES
+from nubomedia_vca_tpu_torch.ops.cuda.dense_cuda import (FEAT_WORDS,
+                                                         MAX_SMEM_BYTES,
+                                                         TREE_WORDS)
 from nubomedia_vca_tpu_torch.ops.cuda.dense_level_cuda import (
-    FEAT_WORDS, TREE_WORDS, DenseLevelPlan, dense_level_reference)
+    DenseLevelPlan, dense_level_reference)
 from nubomedia_vca_tpu_torch.ops.integral import (integral_image,
                                                   sq_integral_image,
                                                   tilted_integral_image)
@@ -141,6 +143,75 @@ def test_integral_tables_checks_inputs():
     with pytest.raises(ValueError):
         integral_cuda.integral_tables(
             torch.zeros((2, 8, 9), dtype=torch.uint8).transpose(1, 2))
+
+
+def _integral_band_mirror(img, seed):
+    """numpy mirror of csrc/integral_tables.cu, uint32 throughout: per band
+    of band_rows(H, W) rows (tickets in order, frame-major), the row
+    prefixes and the in-band column prefix; its aggregate and inclusive
+    prefix; the carry from a look-back that finds each band above either
+    with its inclusive prefix published (and stops there) or only with its
+    aggregate, at random; then the band's table rows. → (ii, sq, number of
+    writes of each table word)."""
+    B, H, W = img.shape
+    R, n_bands = integral_cuda.band_geometry(H, W)
+    rng = np.random.RandomState(seed)
+    ii = np.zeros((B, H + 1, W + 1), np.uint32)
+    sq = np.zeros_like(ii)
+    writes = np.zeros((B, H + 1, W + 1), np.int64)
+    agg, incl = {}, {}
+    for t in range(B * n_bands):
+        b, band = divmod(t, n_bands)
+        row0 = band * R
+        x = img[b, row0:row0 + R].astype(np.uint32)
+        band_ii = x.cumsum(1, dtype=np.uint32).cumsum(0, dtype=np.uint32)
+        band_sq = (x * x).cumsum(1, dtype=np.uint32).cumsum(0, dtype=np.uint32)
+        carry = np.zeros((2, W), np.uint32)
+        for j in range(t - 1, t - band - 1, -1):
+            if j == t - band or rng.rand() < 0.5:   # band 0 is always done
+                carry += incl[j]
+                break
+            carry += agg[j]
+        if len(x):
+            agg[t] = np.stack([band_ii[-1], band_sq[-1]])
+            incl[t] = carry + agg[t]
+        if band == 0:
+            writes[b, 0] += 1
+        rows = slice(row0 + 1, row0 + 1 + len(x))
+        ii[b, rows, 1:] = carry[0] + band_ii
+        sq[b, rows, 1:] = carry[1] + band_sq
+        writes[b, rows] += 1
+    return ii.view(np.int32), sq.view(np.int32), writes
+
+
+@pytest.mark.parametrize("hw,n_bands", [
+    ((180, 320), 12), ((112, 199), 5), ((37, 53), 1), ((1, 1), 1),
+    ((15, 320), 1), ((16, 320), 1), ((17, 320), 2), ((33, 320), 3)])
+def test_integral_band_mirror_matches_plain(hw, n_bands):
+    """The banded scan with look-back carries, mirrored in numpy, equals the
+    plain version on images with the largest sums; each table word is
+    written once. At 320 columns a band is 16 rows: heights R - 1, R, R + 1
+    and 2R + 1 put the last band's edge on each side of a band boundary."""
+    img = _u8(sum(hw), (3,) + hw)
+    img[0] = 255
+    assert integral_cuda.band_geometry(*hw)[1] == n_bands
+    ii, sq, writes = _integral_band_mirror(img, seed=sum(hw))
+    want = integral_cuda.integral_tables_reference(torch.from_numpy(img))
+    assert (writes == 1).all()
+    assert np.array_equal(ii, want[0].numpy())
+    assert np.array_equal(sq, want[1].numpy())
+
+
+def test_integral_band_geometry_fits_shared_memory():
+    """Bands hold about BAND_PIXELS pixels and their shared memory fits a
+    block; an image row too wide for one block raises."""
+    for H, W in [(180, 320), (720, 1280), (20, 22), (1, 5000)]:
+        rows, n = integral_cuda.band_geometry(H, W)
+        assert rows * n >= H and (n - 1) * rows < max(H, 1)
+        assert integral_cuda.band_smem_bytes(rows, W) <= MAX_SMEM_BYTES
+        assert rows == min(H, max(1, integral_cuda.BAND_PIXELS // W))
+    with pytest.raises(ValueError, match="shared memory"):
+        integral_cuda.band_rows(4, 20_000)
 
 
 # ------------------------------------------------------------------ #2
