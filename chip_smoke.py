@@ -13,17 +13,18 @@ Phases, each printing its findings, any failure ending the run non-zero:
 3. kernels vs plain versions, exactly, on the same CUDA tensors:
    the pyramid dense kernel on B=64 synthetic 1280x720 (and 640x480) face
    work images and noise (level images, vnf, alive), and on the nose's
-   20-level launch of the part chain at 320x180; at the part chain's
-   320x180, the tilted kernels (table pass, tilted table, tiled
-   evaluation) on every level of the mouth and both eyes, 320x180
-   included (ii, iit, vnf, alive), the tilted-table kernel alone against
-   the image's plain tilted table and the integral kernel alone on the
-   same levels and at band-edge heights and 1x1, the row-strip kernel on the nose's four strip levels and
-   with one strip on a pyramid-sized level (vnf, alive); the
-   int8 quantizer on the seven layer inputs of a B=64 720p int8 forward
-   and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all zeros), the
-   stochastic quantizer on the conv1 input for two seeds (values, scale,
-   and its mean rounding error within 5 sigma of 0);
+   24-level launch of the part chain at 320x180; its bands alone on the
+   nose's four wide levels (320x180 .. 240x135, whose whole tables exceed
+   a block: the row-strip kernel's levels before), and in bands of one
+   grid row on the widest; at the part chain's 320x180, the tilted kernels
+   (table pass, tilted table, tiled evaluation) on every level of the
+   mouth and both eyes, 320x180 included (ii, iit, vnf, alive), the
+   tilted-table kernel alone against the image's plain tilted table and
+   the integral kernel alone on the same levels and at band-edge heights
+   and 1x1; the int8 quantizer on the seven layer inputs of a B=64 720p
+   int8 forward and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all
+   zeros), the stochastic quantizer on the conv1 input for two seeds
+   (values, scale, and its mean rounding error within 5 sigma of 0);
 4. face path: ``FaceDetector((1280, 720), device="cuda").process`` over
    consecutive batches of one stream; the pyramid kernel must launch once
    per batch, at least one face must be tracked, and the tracked faces
@@ -31,7 +32,8 @@ Phases, each printing its findings, any failure ending the run non-zero:
    CPU run;
 5. part path: ``NoseDetector``, ``MouthDetector`` and ``EyeDetector`` at
    1280x720 on the card over two batches of one stream: every kernel
-   launches as often as the engines' level routes predict; per-frame
+   launches as often as the engines' level routes predict (the pyramid
+   kernel twice per nose batch, once of them with the wide levels); per-frame
    outputs, grouped faces and compacted raw part candidates (with their
    overflow flags) equal the port's CPU run; nose boxes, mouth candidates
    and alive windows after the dense phase of every tilted engine are
@@ -49,8 +51,9 @@ Phases, each printing its findings, any failure ending the run non-zero:
    shapes and this run's data, and a PyTorch call computing the same
    function where there is one (the ``torch.cumsum`` pair for the integral
    kernel, ``abs().amax()`` + ``torch.quantize_per_tensor`` for the int8
-   quantizer): the pyramid kernel on the face path's launch and on the
-   nose's 20-level launch, the integral kernel over the mouth's 23, the
+   quantizer): the pyramid kernel on the face path's launch, on the
+   nose's 24-level launch and on the nose's four wide levels alone, the
+   integral kernel over the mouth's 23, the
    right eye's 24 and its 6 largest levels; the tilted dense phase over
    the right eye's 18 levels that
    the single-block kernel of earlier versions took, over all 24, and over
@@ -108,25 +111,31 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 PALLAS = "nubomedia_vca_tpu/ops/pallas"
 CSRC = "nubomedia_vca_tpu_torch/csrc"
-KERNELS = {   # name → (launch counter, source, TPU kernel replaced)
-    "pyramid_dense_phase": (dense_cuda.pyramid_dense_phase,
+# name → (wrapper, its launch counter, source, TPU kernel replaced). The
+# row-strip form of the TPU dense phase (dense_pallas.py:276) is carried by
+# the pyramid kernel's bands: its entry counts the pyramid launches that
+# hold a wide level (whole tables over a block's shared memory).
+KERNELS = {
+    "pyramid_dense_phase": (dense_cuda.pyramid_dense_phase, "launches",
                             f"{CSRC}/pyramid_dense.cu",
                             f"{PALLAS}/dense_pallas.py:371"),
-    "dense_level_tilted": (dense_level_cuda.dense_level_tilted,
+    "dense_level_tilted": (dense_level_cuda.dense_level_tilted, "launches",
                            f"{CSRC}/dense_level.cu",
                            f"{PALLAS}/dense_pallas.py:221"),
-    "tilted_table": (dense_level_cuda.tilted_table, f"{CSRC}/dense_level.cu",
+    "tilted_table": (dense_level_cuda.tilted_table, "launches",
+                     f"{CSRC}/dense_level.cu",
                      f"{PALLAS}/dense_pallas.py:181"),
-    "dense_level_strips": (dense_level_cuda.dense_level_strips,
-                           f"{CSRC}/dense_level.cu",
-                           f"{PALLAS}/dense_pallas.py:276"),
-    "integral_tables": (integral_cuda.integral_tables,
+    "pyramid_dense_phase_wide": (dense_cuda.pyramid_dense_phase,
+                                 "wide_launches", f"{CSRC}/pyramid_dense.cu",
+                                 f"{PALLAS}/dense_pallas.py:276"),
+    "integral_tables": (integral_cuda.integral_tables, "launches",
                         f"{CSRC}/integral_tables.cu",
                         f"{PALLAS}/integral_pallas.py:52"),
-    "quantize_int8": (quant_cuda.quantize_int8, f"{CSRC}/quant_int8.cu",
+    "quantize_int8": (quant_cuda.quantize_int8, "launches",
+                      f"{CSRC}/quant_int8.cu",
                       f"{PALLAS}/quant_pallas.py:73"),
     "quantize_int8_stochastic": (quant_cuda.quantize_int8_stochastic,
-                                 f"{CSRC}/quant_int8.cu",
+                                 "launches", f"{CSRC}/quant_int8.cu",
                                  f"{PALLAS}/quant_pallas.py:100"),
 }
 # No path runs it: the JAX package calls quantize_int8_stochastic_pallas
@@ -175,12 +184,13 @@ def in_turns(kernel, plain, n_kernel: int, n_plain: int):
 
 
 def reset_counts() -> None:
-    for counter, _, _ in KERNELS.values():
-        counter.launches = 0
+    for fn, attr, _, _ in KERNELS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict[str, int]:
-    return {name: c.launches for name, (c, _, _) in KERNELS.items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr, _, _) in KERNELS.items()}
 
 
 def work_images(frames, size, dev) -> torch.Tensor:
@@ -246,7 +256,7 @@ def build_all() -> None:
 
 def check_pyramid(dev, frames_by_size, nose) -> float:
     """The pyramid kernel vs its plain version on the face engine's plans
-    (720p and 480p frames) and on the nose's 20-level launch of the part
+    (720p and 480p frames) and on the nose's 24-level launch of the part
     chain (720p frames at 320x180); faces and noise; → max |err|."""
     max_err = 0.0
     cases = []
@@ -275,7 +285,7 @@ def check_pyramid(dev, frames_by_size, nose) -> float:
               f"{len(p.levels)} levels in {len(p.items)} bands, B={BATCH}: "
               f"== plain (level images, vnf, alive); alive windows "
               f"{n_alive[0]} (faces) {n_alive[1]} (noise); smem per block "
-              f"{p.band_smem_bytes} B (whole largest level {p.smem_bytes} B)")
+              f"{p.band_smem_bytes} B ({p.n_wide} wide levels)")
     return max_err
 
 
@@ -285,12 +295,13 @@ def part_engines(dev) -> dict:
 
 
 def check_level_kernels(dev, dets, part_frames) -> dict[str, float]:
-    """Tilted, tilted-table, strip and integral kernels vs their plain
-    versions on the part chain's levels; → max |err| per kernel."""
+    """Tilted, tilted-table and integral kernels vs their plain versions
+    on the part chain's levels, and the pyramid kernel's bands on the
+    nose's wide levels; → max |err| per kernel."""
     work = work_images(part_frames, (320, 180), dev)
     noise = torch.from_numpy(np.random.RandomState(6).randint(
         0, 256, work.shape, np.uint8)).to(dev)
-    err = {"dense_level_tilted": 0.0, "dense_level_strips": 0.0,
+    err = {"dense_level_tilted": 0.0, "pyramid_dense_phase_wide": 0.0,
            "integral_tables": 0.0, "tilted_table": 0.0}
     tilted = [(n, e) for d in dets.values()
               for n, e in d.part_engines.items() if e._uses_tilt]
@@ -350,29 +361,38 @@ def check_level_kernels(dev, dets, part_frames) -> dict[str, float]:
           f"{err['tilted_table']}, integral {err['integral_tables']} (also "
           "at 1x1, 320 wide at 15, 16, 17, 33 rows, 53x37)")
     nose = dets["NoseDetector"].part_engines["nose"]
-    plans = dict(nose._level_plans)
-    one = dense_level_cuda.DenseLevelPlan.make(
-        nose.levels[len(plans)], nose._tables, tilted=False)
-    plans[len(plans)] = one
     n_alive = 0
-    for x in (work, noise):
-        for li, plan in plans.items():
-            l = nose.levels[li]
-            img = resize_linear_exact(x, (l.sw, l.sh))
-            got = dense_level_cuda.dense_level_strips(img, plan)
-            want = dense_level_cuda.dense_level_reference(img, plan)[2:]
-            for g, w, what in zip(got, want, ("vnf", "alive")):
-                err["dense_level_strips"] = max(
-                    err["dense_level_strips"],
-                    assert_equal(g, w, f"nose level {li} {what}"))
-            n_alive += int(got[1].sum())
-    torch.cuda.synchronize()
-    shapes = [(p.level.sw, p.level.sh, p.n_strips, p.smem_bytes)
-              for p in plans.values()]
-    print(f"strip kernel (nose levels (w, h, strips, smem B) {shapes}, the "
-          f"last with one strip), B={BATCH} faces + noise: == plain; alive "
-          f"windows {n_alive}")
+    for what, plan in wide_plans(nose).items():
+        for x in (work, noise):
+            got = dense_cuda.pyramid_dense_phase(x, plan)
+            want = dense_cuda.pyramid_dense_phase_reference(x, plan)
+            torch.cuda.synchronize()
+            for li, (g, w) in enumerate(zip(got, want)):
+                for gt, wt, name in zip(g, w, ("image", "vnf", "alive")):
+                    err["pyramid_dense_phase_wide"] = max(
+                        err["pyramid_dense_phase_wide"],
+                        assert_equal(gt, wt, f"nose {what} level {li} {name}"))
+            n_alive += sum(int(a.sum()) for _, _, a in got)
+        print(f"pyramid kernel, nose {what}: {len(plan.levels)} levels "
+              f"{[(l.sw, l.sh) for l in plan.levels]} in {len(plan.items)} "
+              f"bands, smem per block {plan.band_smem_bytes} B, B={BATCH} "
+              "faces + noise: == plain (level images, vnf, alive)")
+    print(f"pyramid kernel on the wide levels: max |err| "
+          f"{err['pyramid_dense_phase_wide']}; alive windows {n_alive}")
     return err
+
+
+def wide_plans(nose) -> dict:
+    """The pyramid kernel's plans of the nose's four wide levels alone (the
+    row-strip kernel's levels before): in the default bands, and the widest
+    in bands of one grid row."""
+    wide = [l for l in nose.levels
+            if dense_cuda.pyramid_smem_bytes(l) > dense_cuda.MAX_SMEM_BYTES]
+    assert len(wide) == 4, wide
+    return {"4 wide levels": dense_cuda.PyramidDensePlan(
+                (320, 180), wide, nose._tables),
+            "widest level, one grid row a band": dense_cuda.PyramidDensePlan(
+                (320, 180), wide[:1], nose._tables, band_target=0)}
 
 
 def layer_inputs(dev, frames_720) -> list[torch.Tensor]:
@@ -473,7 +493,8 @@ def predicted_launches(det) -> dict[str, int]:
         "pyramid_dense_phase": sum(e._plan is not None for e in engines),
         "dense_level_tilted": sum(e.routes.count("tilted") for e in engines),
         "tilted_table": sum(e.routes.count("tilted") for e in engines),
-        "dense_level_strips": sum(e.routes.count("strips") for e in engines),
+        "pyramid_dense_phase_wide": sum(
+            e._plan is not None and e._plan.n_wide > 0 for e in engines),
         "integral_tables": sum(e.routes.count("tilted") for e in engines),
         "quantize_int8": 0,
         "quantize_int8_stochastic": 0,
@@ -819,14 +840,14 @@ def level_images(part, eng) -> dict[int, torch.Tensor]:
 def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
     out: dict[str, dict] = {}
     # pyramid kernel: the face path's 7 levels at 160x90, and the nose's
-    # 20-level launch at 320x180
+    # 24-level launch at 320x180
     out["pyramid_dense_phase"] = time_pyramid(
         gpu, work_images(frames_720, (160, 90), dev), face_eng._plan,
         "the face path's levels at 160x90")
     part = work_images(frames_720, (320, 180), dev)
     nose = dets["NoseDetector"].part_engines["nose"]
     time_pyramid(gpu, part, nose._plan,
-                 "the nose's pyramid launch at 320x180 (219x123 .. 36x20)")
+                 "the nose's pyramid launch at 320x180 (320x180 .. 36x20)")
 
     # level kernels at the part chain's 320x180, per B=64 batch
     eye = dets["EyeDetector"].part_engines["right"]
@@ -842,30 +863,10 @@ def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
         gpu, list(levels.values()),
         "the right eye's 24 tilted levels (its launches on the path)")
 
-    splans = nose._level_plans
-    nlevels = {li: resize_linear_exact(part, (nose.levels[li].sw,
-                                              nose.levels[li].sh))
-               for li in splans}
-
-    def strip_kernel():
-        return [dense_level_cuda.dense_level_strips(nlevels[li], pl)
-                for li, pl in splans.items()]
-
-    k, p, runs = in_turns(strip_kernel, lambda: [
-        dense_level_cuda.dense_level_reference(nlevels[li], pl)
-        for li, pl in splans.items()], 50, 10)
-    res = strip_kernel()
-    n_bytes = sum(nlevels[li].numel() + 5 * vnf.numel()
-                  for li, (vnf, _) in zip(splans, res))
-    # + per level pixel: the two strip tables (4)
-    n_ops = sum(dense_ops(nose._tables, vnf, alive) + 4.0 * nlevels[li].numel()
-                for li, (vnf, alive) in zip(splans, res))
-    b_ms, b_by = bound(n_bytes, n_ops)
-    out["dense_level_strips"] = dict(ms=k, plain_ms=p, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=None)
-    print(f"time: strip level kernel {k:.4f} ms per B={BATCH} batch over the "
-          f"nose's 4 strip levels (320x180 .. 240x135; runs {runs}); bound "
-          f"{b_ms:.4f} ms ({b_by}) [{gpu}]")
+    out["pyramid_dense_phase_wide"] = time_pyramid(
+        gpu, part, wide_plans(nose)["4 wide levels"],
+        "the nose's 4 wide levels alone (320x180 .. 240x135, the row-strip "
+        "kernel's before)")
 
     time_quant(dev, gpu, xs, out)
 
@@ -952,7 +953,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name], **t[name]}
-        for name, (_, src, rep) in KERNELS.items()]}))
+        for name, (_, _, src, rep) in KERNELS.items()]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,15 +7,14 @@ Per batch of work images:
 * **Dense phase**: for every pyramid level, the level image, integral
   tables, variance normalization and the first few stages (the dense
   block) on the level's ystep-strided window grid. Each level takes one of
-  three routes, chosen from its geometry alone (``_route``), so the CPU
-  runs the same control flow as the card, each kernel through its plain
-  PyTorch version:
+  two routes, chosen from the cascade and the level's geometry alone
+  (``_route``), so the CPU runs the same control flow as the card, each
+  kernel through its plain PyTorch version:
 
-  - ``pyramid``: non-tilted levels whose two tables fit one block's shared
-    memory, all in one launch of ``ops/cuda/dense_cuda.pyramid_dense_phase``
-    (which also makes the level images);
-  - ``strips``: larger non-tilted levels, resized here, then
-    ``dense_level_cuda.dense_level_strips``;
+  - ``pyramid``: every level of a non-tilted cascade, all in one launch of
+    ``ops/cuda/dense_cuda.pyramid_dense_phase`` (which also makes the level
+    images), which cuts each level into bands of window rows that fit one
+    block's shared memory;
   - ``tilted``: every level of a tilted cascade, resized here, then
     ``dense_level_cuda.dense_level_tilted`` (the tables in device memory,
     then a tiled evaluation whose shared memory a tile sets, not the
@@ -62,9 +61,8 @@ import torch.nn.functional as F
 
 from ..ops.cuda.dense_cuda import (MAX_SMEM_BYTES, DenseTables,
                                    PyramidDensePlan, pyramid_dense_phase,
-                                   pyramid_smem_bytes)
-from ..ops.cuda.dense_level_cuda import (DenseLevelPlan, dense_level_strips,
-                                         dense_level_tilted, strip_plan,
+                                   pyramid_fits)
+from ..ops.cuda.dense_level_cuda import (DenseLevelPlan, dense_level_tilted,
                                          tilted_fits)
 from ..ops.grouping import group_rectangles_torch
 from ..ops.resize import resize_linear_exact
@@ -121,17 +119,19 @@ class _Block:
         return out
 
 
-def _check_true_f32_matmul() -> None:
-    """_block_eval needs float32 matmuls in full float32 (patch values up
-    to ~1e5 lose parity under TF32 rounding)."""
+def _check_true_f32_matmul(who: str = "CascadeEngine") -> None:
+    """Raise unless float32 matmuls run in full float32, as the JAX
+    package pins them (``Precision.HIGHEST``): the engine's _block_eval
+    loses parity under TF32 rounding (patch values up to ~1e5), and the
+    CNN's float32 head is held to the same rule."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
-            "CascadeEngine needs torch.backends.cuda.matmul.allow_tf32 == "
-            "False (TF32 rounding breaks exact cascade evaluation)")
+            f"{who} needs torch.backends.cuda.matmul.allow_tf32 == False "
+            "(its float32 matmuls must not round through TF32)")
     prec = torch.get_float32_matmul_precision()
     if prec != "highest":
         raise RuntimeError(
-            "CascadeEngine needs torch.get_float32_matmul_precision() == "
+            f"{who} needs torch.get_float32_matmul_precision() == "
             f"'highest', got {prec!r}")
 
 
@@ -205,9 +205,8 @@ class CascadeEngine:
             [self.levels[li] for li in self._pyramid_lis], self._tables)
             if self._pyramid_lis else None)
         self._level_plans = {
-            li: DenseLevelPlan.make(self.levels[li], self._tables,
-                                    tilted=(r == "tilted"))
-            for li, r in enumerate(self.routes) if r in ("strips", "tilted")}
+            li: DenseLevelPlan.make(self.levels[li], self._tables)
+            for li, r in enumerate(self.routes) if r == "tilted"}
 
         dev = self.device
         self._patch_dtype = (torch.float64 if self._needs_f64()
@@ -237,15 +236,13 @@ class CascadeEngine:
                 f"level {l.sw}x{l.sh}: no dense kernel takes it (the tilted "
                 "kernels need a tile of windows and the tilted table's rows "
                 f"in {MAX_SMEM_BYTES} B of shared memory)")
-        if pyramid_smem_bytes(l) <= MAX_SMEM_BYTES:
+        if pyramid_fits(l, self.cascade.window_h):
             return "pyramid"
-        if strip_plan(l, self.cascade.window_h) is not None:
-            return "strips"
         raise NotImplementedError(
             f"level {l.sw}x{l.sh}: no dense kernel takes it (the pyramid "
-            "kernel needs both tables in shared memory, the row-strip kernel "
-            f"a strip of {self.cascade.window_h} rows; "
-            f"{MAX_SMEM_BYTES} B available)")
+            "kernel needs both tables of a band of "
+            f"{self.cascade.window_h} rows in {MAX_SMEM_BYTES} B of shared "
+            "memory)")
 
     def _needs_f64(self) -> bool:
         """Whether a feature matmul's partial sums can reach 2^24: always
@@ -494,14 +491,10 @@ class CascadeEngine:
         return boxes, sel_alive, overflow
 
     def _dense_level(self, gray: torch.Tensor, li: int):
-        """Level `li` outside the pyramid kernel → (img, ii, iit, vnf,
-        alive) by its route."""
+        """Tilted level `li` → (img, ii, iit, vnf, alive)."""
         l = self.levels[li]
         same = (l.sw, l.sh) == (self.image_w, self.image_h)
         img = gray if same else resize_linear_exact(gray, (l.sw, l.sh))
-        if self.routes[li] == "strips":
-            vnf, alive = dense_level_strips(img, self._level_plans[li])
-            return img, None, None, vnf, alive
         return (img, *dense_level_tilted(img, self._level_plans[li]))
 
     def _detect_impl(self, gray: torch.Tensor):

@@ -1,11 +1,12 @@
-// Dense phase of one pre-resized pyramid level, for NVIDIA Hopper (sm_90a).
+// Dense phase of one pre-resized tilted pyramid level, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel build_dense_phase
-// (nubomedia_vca_tpu/ops/pallas/dense_pallas.py:221) in its two forms:
-//
-// * tilted (the single-block kernel, pallas_call :329, with the in-kernel
-//   rotated table, :181), in two kernels after the sum and squared-sum
-//   tables (csrc/integral_tables.cu):
+// (nubomedia_vca_tpu/ops/pallas/dense_pallas.py:221) in its tilted form
+// (the single-block kernel, pallas_call :329, with the in-kernel rotated
+// table, :181), in two kernels after the sum and squared-sum tables
+// (csrc/integral_tables.cu); its row-strip form is a band of the pyramid
+// kernel (pyramid_dense.cu):
 //   - tilted_table_kernel builds the tilted table from the sum table in
 //     device memory;
 //   - tilted_eval_kernel evaluates the dense block tile by tile: a block
@@ -16,17 +17,6 @@
 //   at most) and allowed one block per SM. Here shared memory is sized by
 //   the tile, so every level of a tilted cascade takes these kernels and
 //   a 320x180 level at B = 64 gives 3,840 blocks, several per SM.
-// * row strips (strip_kernel :276, pallas_call :300, dense_strip_plan
-//   :116): for non-tilted levels too large for one block, one block per
-//   (strip, frame) builds strip-local sum and squared-sum tables of
-//   strip_gy + h0 - 1 level rows (the h0 - 1 halo rows complete the
-//   windows that start in the strip) and evaluates the windows whose
-//   origin row lies in the strip. A rect sum is a 4-corner difference, so
-//   a strip-local table gives the same sums as the level's table (uint32
-//   wraparound), and the results equal a whole-level evaluation. strip_gy
-//   is a multiple of ystep, so the strided rows of the level land on rows
-//   0, ystep, ... of every strip; the last strip is ragged and simply has
-//   fewer rows. With a single strip this is the non-tilted single block.
 //
 // The tilted table, T(y, x) = sum of pixels (y', x') with y' < y and
 // |x' - (x - 1)| <= y - y' - 1, comes from the sum table: with
@@ -56,11 +46,11 @@
 // shared memory beside them. A record holds each feature's corner offsets
 // for that pitch, so a rect is 4 shared-memory reads at precomputed
 // offsets. Every window reads the same records (warp-uniform); read from
-// device memory through L1, as dense_eval.cuh's evaluator does, these
-// dependent loads took a third of the evaluation's time on an H100. The
-// evaluator is dense_eval.cuh's eval_records with tilted features, which
-// the pyramid kernel shares without them (norm_window, then per weak tree
-// __fmul_rn / __fadd_rn, compare, stage sums, early exit).
+// device memory through L1, these dependent loads took a third of the
+// evaluation's time on an H100. The evaluator is dense_eval.cuh's
+// eval_records with tilted features, which the pyramid kernel shares
+// without them (norm_window, then per weak tree __fmul_rn / __fadd_rn,
+// compare, stage sums, early exit).
 // Compacting the survivors of stage 0 (a warp ballot into a shared list,
 // so that warps stay full as windows die) gained at most 5% and lost 3% on
 // the largest levels: a block then keeps fewer warps in flight to hide the
@@ -82,7 +72,6 @@
 
 namespace {
 
-constexpr int kStripThreads = 256;
 constexpr int kEvalThreads = 256;   // one thread per window of a full tile
 constexpr int kTableThreads = 512;  // diagonals in flight per frame
 constexpr int kChunk = 8;           // rows a table thread loads ahead
@@ -101,57 +90,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// ------------------------------------------------------------ row strips
-__global__ void __launch_bounds__(kStripThreads)
-strip_kernel(const uint8_t* __restrict__ img, int sh, int sw, int step,
-             int nx, int ny, int strip_gy, int win_h, DENSE_CASCADE_PARAMS,
-             float* __restrict__ vnf_out, uint8_t* __restrict__ alive_out) {
-  extern __shared__ uint32_t smem[];
-  const int s = blockIdx.x, b = blockIdx.y;
-  const int row0 = s * strip_gy;
-  const int rows = min(strip_gy + win_h - 1, sh - row0);  // level rows here
-  const int w1 = sw + 1, n1 = (rows + 1) * w1;
-  uint32_t* ii = smem;
-  uint32_t* sq = smem + n1;
-  const uint8_t* src =
-      img + static_cast<size_t>(b) * sh * sw + static_cast<size_t>(row0) * sw;
-
-  // 1. zero top row and left column; pixels (and their squares) at (y+1, x+1)
-  for (int i = threadIdx.x; i < w1; i += blockDim.x) {
-    ii[i] = 0u;
-    sq[i] = 0u;
-  }
-  for (int y = threadIdx.x; y < rows; y += blockDim.x) {
-    ii[(y + 1) * w1] = 0u;
-    sq[(y + 1) * w1] = 0u;
-  }
-  for (int i = threadIdx.x; i < rows * sw; i += blockDim.x) {
-    const int y = i / sw, x = i - y * sw;
-    const uint32_t p = src[i];
-    ii[(y + 1) * w1 + x + 1] = p;
-    sq[(y + 1) * w1 + x + 1] = p * p;
-  }
-  __syncthreads();
-
-  // 2. sum and squared-sum tables (uint32 wraparound)
-  dense::prefix_tables(ii, sq, rows, sw);
-
-  // 3. one thread per strided window whose origin row lies in this strip
-  const int iy0 = row0 / step;
-  const int iy1 = min(ny, (row0 + strip_gy) / step);
-  const int n_win = (iy1 - iy0) * nx;
-  for (int w = threadIdx.x; w < n_win; w += blockDim.x) {
-    const int iy = iy0 + w / nx, ix = w % nx;
-    const int origin = (iy * step - row0) * w1 + ix * step;
-    float vnf;
-    const bool alive = dense::eval_window<false>(
-        ii + origin, sq + origin, nullptr, w1, DENSE_CASCADE_ARGS, &vnf);
-    const size_t o = (static_cast<size_t>(b) * ny + iy) * nx + ix;
-    vnf_out[o] = vnf;
-    alive_out[o] = alive ? 1 : 0;
-  }
 }
 
 // ---------------------------------------------------------- tilted table
@@ -282,24 +220,6 @@ int set_smem(const void* kernel, int smem_bytes) {
 
 // Every launcher runs on `stream` and returns the CUDA error code of the
 // attribute call or of the launch (0 on success).
-
-// One block per (strip, frame): vnf and alive of a non-tilted level.
-extern "C" int dense_strips_launch(int device, void* stream, const uint8_t* img,
-                                   int B, int sh, int sw, int step, int nx,
-                                   int ny, int strip_gy, int n_strips,
-                                   int win_h, DENSE_CASCADE_PARAMS,
-                                   int smem_bytes, float* vnf_out,
-                                   uint8_t* alive_out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int rc = set_smem(reinterpret_cast<const void*>(strip_kernel), smem_bytes);
-  if (rc != 0) return rc;
-  strip_kernel<<<dim3(n_strips, B), kStripThreads, smem_bytes,
-                 static_cast<cudaStream_t>(stream)>>>(
-      img, sh, sw, step, nx, ny, strip_gy, win_h, DENSE_CASCADE_ARGS, vnf_out,
-      alive_out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // One block per frame: the tilted table [B, H+1, W+1] from the sum table of
 // the same shape.

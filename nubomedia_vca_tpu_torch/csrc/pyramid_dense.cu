@@ -2,8 +2,12 @@
 //
 // Replaces the TPU kernel build_pyramid_dense_phase
 // (nubomedia_vca_tpu/ops/pallas/dense_pallas.py:371, evaluator
-// _make_eval_dense :147, resize matrices _resize_matrix :351). Per frame and
-// per pyramid level it:
+// _make_eval_dense :147, resize matrices _resize_matrix :351), and the
+// row-strip form of build_dense_phase (strip_kernel :276, pallas_call :300,
+// dense_strip_plan :116), which takes the levels too large for one block:
+// a band of this kernel is such a strip, so every non-tilted level of an
+// engine, its wide ones included, runs in one launch. Per frame and per
+// pyramid level it:
 //   1. makes the level image from the work image [B,H,W] u8 with
 //      cv::resize INTER_LINEAR_EXACT semantics: direct 2-tap integer
 //      arithmetic from the host index/coefficient tables (Q8 horizontal,
@@ -26,14 +30,18 @@
 // PyramidDensePlan) cuts every level into bands of whole window rows with
 // similar window counts — a large level many, a small level one — and
 // lists them as work items. A block resizes only its band's level rows
-// plus the window_h - 1 halo that completes its last windows, builds
-// band-local tables, and evaluates the band's windows. A rect sum is a
+// plus the window_h - ystep halo that completes its last windows, builds
+// band-local tables, and evaluates the band's windows (the last band of a
+// level also resizes and writes the level's bottom rows that no window
+// reads, without tabulating them). A rect sum is a
 // 4-corner difference, so a band-local table gives the level table's sums
 // (uint32 wraparound) and the results are bit for bit those of a
 // whole-level table. Shared memory is sized by the largest band, not the
 // largest level (the face plan: about 57 KB instead of 117 KB), so several
-// blocks share an SM and the work is balanced across them. Each level image
-// row is written by the one band that owns it (rows [row0, own1)).
+// blocks share an SM and the work is balanced across them; a wide level's
+// bands are at least one grid row (window_h table rows) and up to about
+// 107 KB at 320 px. Each level image row is written by the one band that
+// owns it (rows [row0, own1)).
 //   - Row prefix sums: one warp per band row, 32 pixels a step, an
 //     inclusive warp scan (__shfl_up_sync) plus the running carry; the
 //     resize of the row's pixels happens in the same pass. Column prefix
@@ -42,7 +50,10 @@
 //     level's row length, sw + 1) and stage thresholds are copied to shared
 //     memory: every window reads the same ones (warp-uniform), and read
 //     through L1 as dependent loads they took a third of the tilted
-//     evaluation's time on an H100.
+//     evaluation's time on an H100. A plan with a level whose band tables
+//     leave no room for them (wider than about 1300 px at a 20-px window)
+//     reads them through L1 instead (the kernel's kStaged = false), so that
+//     a band of one grid row is all a level needs.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +74,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 pyramid_band_kernel(const uint8_t* __restrict__ work, int H, int W,
                     const int* __restrict__ levels,
@@ -86,33 +98,42 @@ pyramid_band_kernel(const uint8_t* __restrict__ work, int H, int W,
   const int w1 = sw + 1;
   uint32_t* ii = smem;                                   // [rows+1][w1]
   uint32_t* sq = ii + (rows + 1) * w1;
-  int* s_trees = reinterpret_cast<int*>(sq + (rows + 1) * w1);
-  float* s_thr = reinterpret_cast<float*>(s_trees + n_weak * dense::kTreeWords);
+  const int* recs = trees + L[kRecOff];
+  const float* thr = stage_thr;
   const uint8_t* src = work + static_cast<size_t>(b) * H * W;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  dense::stage_records(s_trees, trees + L[kRecOff], n_weak, s_thr, stage_thr,
-                       n_stages);
+  if (kStaged) {
+    int* s_trees = reinterpret_cast<int*>(sq + (rows + 1) * w1);
+    float* s_thr =
+        reinterpret_cast<float*>(s_trees + n_weak * dense::kTreeWords);
+    dense::stage_records(s_trees, recs, n_weak, s_thr, stage_thr, n_stages);
+    recs = s_trees;
+    thr = s_thr;
+  }
   for (int i = threadIdx.x; i < w1; i += kThreads) {
     ii[i] = 0u;
     sq[i] = 0u;
   }
 
-  // 1.-2. resize a band row and scan it, one warp per row
+  // 1.-2. resize a band row and scan it, one warp per row; rows past the
+  // tabulated ones (the last band's bottom rows) are resized and written
+  const int n_resize = same ? rows : max(rows, own1 - row0);
   const int* rx = rtab + L[kRxOff];  // s0[sw], s1[sw], c0[sw], c1[sw]
   const int* ry = rtab + L[kRyOff];  // s0[sh], s1[sh], c0[sh], c1[sh]
   uint8_t* img_l = img_out + static_cast<size_t>(B) * L[kImgBase] +
                    static_cast<size_t>(b) * sh * sw;
-  for (int r = warp; r < rows; r += kWarps) {
+  for (int r = warp; r < n_resize; r += kWarps) {
     const int y = row0 + r;
     const bool own = !same && y < own1;
+    const bool tab = r < rows;  // warp-uniform
     const uint8_t* r0 = src + (same ? y : ry[y]) * W;
     const uint8_t* r1 = same ? r0 : src + ry[sh + y] * W;
     const int cy0 = same ? 0 : ry[2 * sh + y];
     const int cy1 = same ? 0 : ry[3 * sh + y];
     uint32_t* oi = ii + (r + 1) * w1;
     uint32_t* oq = sq + (r + 1) * w1;
-    if (lane == 0) {
+    if (lane == 0 && tab) {
       oi[0] = 0u;
       oq[0] = 0u;
     }
@@ -143,7 +164,7 @@ pyramid_band_kernel(const uint8_t* __restrict__ work, int H, int W,
           q += nq;
         }
       }
-      if (x < sw) {
+      if (x < sw && tab) {
         oi[x + 1] = ci + a;
         oq[x + 1] = cq + q;
       }
@@ -171,8 +192,8 @@ pyramid_band_kernel(const uint8_t* __restrict__ work, int H, int W,
     const int r = w / nx, ix = w - r * nx;
     const int origin = r * step * w1 + ix * step;
     const dense::Window win = dense::eval_records<false>(
-        s_trees, n_weak, s_thr, n_stages, ii + origin, sq + origin, nullptr,
-        w1, norm_w, norm_h, norm_area, var_thr);
+        recs, n_weak, thr, n_stages, ii + origin, sq + origin, nullptr, w1,
+        norm_w, norm_h, norm_area, var_thr);
     vnf_out[map0 + w] = win.vnf;
     alive_out[map0 + w] = win.alive ? 1 : 0;
   }
@@ -180,23 +201,25 @@ pyramid_band_kernel(const uint8_t* __restrict__ work, int H, int W,
 
 }  // namespace
 
-// Launches one block per (band item, frame) on `stream`. Returns the CUDA
-// error code of the attribute call or of the launch (0 on success).
+// Launches one block per (band item, frame) on `stream`, the tree records
+// staged in shared memory or not. Returns the CUDA error code of the
+// attribute call or of the launch (0 on success).
 extern "C" int pyramid_dense_launch(
     int device, void* stream, const uint8_t* work, int B, int H, int W,
     const int* levels, const int* items, int n_items, const int* rtab,
     const int* trees, int n_weak, const float* stage_thr, int n_stages,
     int norm_w, int norm_h, float norm_area, float var_thr, int smem_bytes,
-    uint8_t* img_out, float* vnf_out, uint8_t* alive_out) {
+    int staged, uint8_t* img_out, float* vnf_out, uint8_t* alive_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(pyramid_band_kernel,
+  const auto kernel =
+      staged ? pyramid_band_kernel<true> : pyramid_band_kernel<false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(n_items, B);
-  pyramid_band_kernel<<<grid, kThreads, smem_bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       work, H, W, levels, items, rtab, trees, n_weak, stage_thr, n_stages,
       norm_w, norm_h, norm_area, var_thr, img_out, vnf_out, alive_out);
   return static_cast<int>(cudaGetLastError());

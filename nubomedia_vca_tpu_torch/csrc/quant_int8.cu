@@ -12,32 +12,55 @@
 // (ops/quant.py) draws the same bits, so kernel and plain version agree bit
 // for bit. The TPU's PRNG stream cannot be reproduced on any other device.
 //
-// The TPU kernel reads x once from VMEM into one block; on Hopper a tensor
-// of millions of elements needs the whole card, and blocks cannot share a
-// running maximum, so one call is two launches on the caller's stream with
-// no host synchronisation between them:
-//   1. absmax_kernel: a grid-stride reduction (16-byte loads where the
-//      pointer allows), warp shuffles and shared memory per block, then one
-//      atomicMax per block on the bits of |x| as unsigned, which orders
-//      non-negative floats as the floats;
-//   2. quantize_kernel: every thread reads the maximum from device memory,
-//      derives the scale and writes its int8 values (4 per 16-byte load);
-//      thread 0 of block 0 also writes the scale.
-// Division and rounding are spelled out (__fdiv_rn, __float2int_rn,
-// __fadd_rn), and the build uses -fmad=false and no fast math.
+// What bounds it: device memory. x is read (4 B an element) and q written
+// (1 B); its operations (an abs, a max, a division, a round, or the ten
+// Philox rounds per 4 elements) are below the card's rate, but the
+// division's slow path for a zero dividend is not: skipping it for the
+// zeros of the ReLU outputs took the seven calls of an int8 forward from
+// 220 to 174 us of kernel time on an H100. A small input is bound by a
+// launch's latency and the barrier (11.5 us for 2.5M elements).
 //
-// What bounds it: device memory. Each element is read twice (4 B each) and
-// written once (1 B); its operations (an abs, a max, a division, a round,
-// or the ten Philox rounds per 4 elements) are far below the card's rate.
+// The TPU kernel reads x once from VMEM into one block. Here one call is one
+// cooperative launch of quant_kernel over every SM, with a grid-wide barrier
+// between the maximum and the quantizing pass:
+//   1. each thread loads the first kRegGroups groups of 4 elements of its
+//      slice (group k * T + t for thread t of T) and keeps them in
+//      registers, then streams the rest of its slice (groups kRegGroups * T
+//      + t + i * T) for the maximum; a block reduces with warp shuffles and
+//      does one atomicMax on the call's epoch-tagged slot,
+//      (epoch << 32) | bits of |x|: the bits of a non-negative float order
+//      as the float, a NaN stays above every number, and a slot from an
+//      earlier call is below every value of this one, so the slot is never
+//      cleared (the wrapper zeroes it once when the 32-bit epoch wraps);
+//   2. after the barrier every thread reads the maximum, derives the scale,
+//      quantizes the streamed groups again in the reverse order of pass 1,
+//      so that the lines it read last may still be in the 50 MB L2, and then
+//      the groups held in registers, which it does not read again. A
+//      thread holds kRegGroups * 16 B of x: at 8 groups (80 registers, 768
+//      resident threads an SM) 13 MB of x stays on the SMs between the
+//      passes, and a layer input of up to 3.2M elements is read from device
+//      memory once. On an H100 this saved no device time over two launches
+//      with the same slot and a reverse second pass (173.8 against 174.7 us
+//      over the seven calls), nor did 1, 2 or 4 groups differ by more than
+//      2% (16 groups: +11%); the one launch spares the host the second
+//      launch.
+// A group's index is its Philox counter, so no ordering changes a bit; the
+// maximum does not depend on order either. Division and rounding are
+// spelled out (__fdiv_rn, __float2int_rn, __fadd_rn), and the build uses
+// -fmad=false and no fast math.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kRegGroups = 8;  // groups of 4 elements a thread keeps
+constexpr int kUnroll = 4;     // loads in flight a thread in a streamed pass
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ unsigned warp_max(unsigned v) {
@@ -50,31 +73,24 @@ __device__ __forceinline__ unsigned abs_bits(float v) {
   return __float_as_uint(fabsf(v));
 }
 
-__global__ void __launch_bounds__(kThreads)
-absmax_kernel(const float* __restrict__ x, long long n, int vec,
-              unsigned* __restrict__ amax_bits) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  const long long n_vec = vec ? n / 4 : 0;
-  unsigned m = 0u;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  for (long long i = tid; i < n_vec; i += stride) {
-    const float4 v = x4[i];
-    m = max(m, max(max(abs_bits(v.x), abs_bits(v.y)),
-                   max(abs_bits(v.z), abs_bits(v.w))));
-  }
-  for (long long i = 4 * n_vec + tid; i < n; i += stride)
-    m = max(m, abs_bits(x[i]));
-  __shared__ unsigned part[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  m = warp_max(m);
-  if (lane == 0) part[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = warp_max(lane < kThreads / 32 ? part[lane] : 0u);
-    if (lane == 0 && m != 0u) atomicMax(amax_bits, m);
-  }
+__device__ __forceinline__ unsigned group_max(float4 v) {
+  return max(max(abs_bits(v.x), abs_bits(v.y)),
+             max(abs_bits(v.z), abs_bits(v.w)));
+}
+
+// Group g of x: elements 4g .. 4g + 3, one 16-byte load where x is 16-byte
+// aligned and the group is whole; elements past n read as 0.
+__device__ __forceinline__ float4 load_group(const float* __restrict__ x,
+                                             long long g, long long n,
+                                             bool vec) {
+  const long long i0 = 4 * g;
+  if (vec && i0 + 3 < n) return reinterpret_cast<const float4*>(x)[g];
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i0 < n) v.x = x[i0];
+  if (i0 + 1 < n) v.y = x[i0 + 1];
+  if (i0 + 2 < n) v.z = x[i0 + 2];
+  if (i0 + 3 < n) v.w = x[i0 + 3];
+  return v;
 }
 
 // max(abs_max, 1e-8) / 127 as XLA compiles it, a multiply by the float32
@@ -84,14 +100,21 @@ __device__ __forceinline__ float scale_of(unsigned amax_bits) {
   return __fmul_rn(a < 1e-8f ? 1e-8f : a, 1.0f / 127.0f);
 }
 
+// v / scale, correctly rounded. A zero v skips the division: 0 / scale is
+// a zero, which rounds and floors as the quotient would, and six of the
+// seven layer inputs are ReLU outputs, many of them zero.
+__device__ __forceinline__ float quotient(float v, float scale) {
+  return v == 0.0f ? v : __fdiv_rn(v, scale);
+}
+
 __device__ __forceinline__ int8_t quant_rint(float v, float scale) {
-  const int r = __float2int_rn(__fdiv_rn(v, scale));
+  const int r = __float2int_rn(quotient(v, scale));
   return static_cast<int8_t>(min(max(r, -127), 127));
 }
 
 __device__ __forceinline__ int8_t quant_floor(float v, float scale,
                                               unsigned bits) {
-  const float s = fminf(fmaxf(__fdiv_rn(v, scale), -127.0f), 127.0f);
+  const float s = fminf(fmaxf(quotient(v, scale), -127.0f), 127.0f);
   const float u = __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-8f);
   const float f = floorf(__fadd_rn(s, u));
   return static_cast<int8_t>(fminf(fmaxf(f, -127.0f), 127.0f));
@@ -114,79 +137,166 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
   return c;
 }
 
-// One thread per group of 4 elements (the group's index is its Philox
-// counter); vec: x is 16-byte and q 4-byte aligned.
-__global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ x, long long n, int vec,
-                const unsigned* __restrict__ amax_bits, int stochastic,
-                unsigned seed, int8_t* __restrict__ q,
-                float* __restrict__ scale_out) {
-  const float scale = scale_of(*amax_bits);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long n_groups = (n + 3) / 4;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       g < n_groups; g += stride) {
-    uint4 w = make_uint4(0u, 0u, 0u, 0u);
-    if (stochastic)
-      w = philox4x32_10(make_uint4(static_cast<unsigned>(g), 0u, 0u, 0u),
-                        seed, 0u);
-    const long long i0 = 4 * g;
-    if (vec && i0 + 3 < n) {
-      const float4 v = reinterpret_cast<const float4*>(x)[g];
-      char4 o;
-      if (stochastic) {
-        o = make_char4(quant_floor(v.x, scale, w.x),
+// Quantizes group g (its values v) into q; vec: q is 4-byte aligned.
+__device__ __forceinline__ void store_group(int8_t* __restrict__ q,
+                                            long long g, long long n,
+                                            bool vec, float4 v, float scale,
+                                            bool stochastic, unsigned seed) {
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (stochastic)
+    w = philox4x32_10(make_uint4(static_cast<unsigned>(g), 0u, 0u, 0u), seed,
+                      0u);
+  const char4 o =
+      stochastic
+          ? make_char4(quant_floor(v.x, scale, w.x),
                        quant_floor(v.y, scale, w.y),
                        quant_floor(v.z, scale, w.z),
-                       quant_floor(v.w, scale, w.w));
-      } else {
-        o = make_char4(quant_rint(v.x, scale), quant_rint(v.y, scale),
+                       quant_floor(v.w, scale, w.w))
+          : make_char4(quant_rint(v.x, scale), quant_rint(v.y, scale),
                        quant_rint(v.z, scale), quant_rint(v.w, scale));
-      }
-      reinterpret_cast<char4*>(q)[g] = o;
-    } else {
-      const unsigned ws[4] = {w.x, w.y, w.z, w.w};
-      for (int j = 0; j < 4 && i0 + j < n; ++j)
-        q[i0 + j] = stochastic ? quant_floor(x[i0 + j], scale, ws[j])
-                               : quant_rint(x[i0 + j], scale);
-    }
+  const long long i0 = 4 * g;
+  if (vec && i0 + 3 < n) {
+    reinterpret_cast<char4*>(q)[g] = o;
+    return;
+  }
+  const int8_t os[4] = {o.x, o.y, o.z, o.w};
+  for (int j = 0; j < 4 && i0 + j < n; ++j) q[i0 + j] = os[j];
+}
+
+// Block maximum of m, then one atomicMax of (epoch << 32) | max on slot.
+__device__ __forceinline__ void publish_max(unsigned m,
+                                            unsigned long long* slot,
+                                            unsigned epoch) {
+  __shared__ unsigned part[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  m = warp_max(m);
+  if (lane == 0) part[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = warp_max(lane < kThreads / 32 ? part[lane] : 0u);
+    if (lane == 0)
+      atomicMax(slot, (static_cast<unsigned long long>(epoch) << 32) | m);
   }
 }
 
-int blocks_for(long long items, int n_sm) {
-  const long long want = (items + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(n_sm) * kBlocksPerSm;
-  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
+// The maximum of |x| over groups first, first + T, ... below n_groups, with
+// kUnroll loads in flight; *last gets the last of them (first - T if none).
+__device__ __forceinline__ unsigned stream_max(const float* __restrict__ x,
+                                               long long n, bool vec,
+                                               long long first,
+                                               long long n_groups,
+                                               long long T, long long* last) {
+  unsigned m = 0u;
+  long long g = first;
+  for (; g + (kUnroll - 1) * T < n_groups; g += kUnroll * T) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = load_group(x, g + u * T, n, vec);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) m = max(m, group_max(v[u]));
+  }
+  for (; g < n_groups; g += T) m = max(m, group_max(load_group(x, g, n, vec)));
+  *last = g - T;
+  return m;
+}
+
+// Quantizes groups last, last - T, ... down to first, with kUnroll loads in
+// flight.
+__device__ __forceinline__ void stream_quantize(
+    const float* __restrict__ x, int8_t* __restrict__ q, long long n,
+    bool vec, long long first, long long last, long long T, float scale,
+    bool stochastic, unsigned seed) {
+  long long g = last;
+  for (; g - (kUnroll - 1) * T >= first; g -= kUnroll * T) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = load_group(x, g - u * T, n, vec);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      store_group(q, g - u * T, n, vec, v[u], scale, stochastic, seed);
+  }
+  for (; g >= first; g -= T)
+    store_group(q, g, n, vec, load_group(x, g, n, vec), scale, stochastic,
+                seed);
+}
+
+// One cooperative launch of T = gridDim.x * kThreads threads (see the top
+// of the file); vec: x is 16-byte and q 4-byte aligned.
+template <int kK>
+__global__ void __launch_bounds__(kThreads)
+quant_kernel(const float* __restrict__ x, long long n, int vec,
+             unsigned long long* slot, unsigned epoch, int stochastic,
+             unsigned seed, int8_t* __restrict__ q,
+             float* __restrict__ scale_out) {
+  const long long T = static_cast<long long>(gridDim.x) * kThreads;
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const long long n_groups = (n + 3) / 4;
+  float4 keep[kK];
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const long long g = k * T + t;
+    keep[k] = g < n_groups ? load_group(x, g, n, vec)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const long long first = kK * T + t;  // this thread's streamed groups
+  long long last;
+  unsigned m = stream_max(x, n, vec, first, n_groups, T, &last);
+#pragma unroll
+  for (int k = 0; k < kK; ++k) m = max(m, group_max(keep[k]));
+  publish_max(m, slot, epoch);
+
+  cg::this_grid().sync();
+
+  const float scale = scale_of(static_cast<unsigned>(__ldcg(slot)));
+  if (t == 0) *scale_out = scale;
+  stream_quantize(x, q, n, vec, first, last, T, scale, stochastic, seed);
+#pragma unroll
+  for (int k = 0; k < kK; ++k) {
+    const long long g = k * T + t;
+    if (g < n_groups)
+      store_group(q, g, n, vec, keep[k], scale, stochastic, seed);
+  }
 }
 
 }  // namespace
 
-// Quantizes x[0..n) into q and *scale_out on `stream`; amax_scratch is one
-// unsigned of device memory. Returns the first CUDA error code (0 on
-// success).
+// The most blocks of quant_kernel that the device runs at once (its SMs
+// times the blocks an SM holds), the grid's upper bound; the wrapper asks
+// once per device. Returns the CUDA error code (0 on success).
+extern "C" int quant_int8_max_blocks(int device, int* blocks) {
+  int n_sm = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, quant_kernel<kRegGroups>, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = n_sm * per_sm;
+  return 0;
+}
+
+// Quantizes x[0..n) into q and *scale_out on `stream` with `blocks` blocks
+// (at most quant_int8_max_blocks); slot is the stream's 64-bit maximum slot
+// and epoch this call's tag (never 0, above the last call's). Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int quant_int8_launch(int device, void* stream, const float* x,
                                  long long n, int stochastic, unsigned seed,
-                                 unsigned* amax_scratch, int8_t* q,
+                                 int blocks, unsigned long long* slot,
+                                 unsigned epoch, int8_t* q,
                                  float* scale_out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int n_sm = 0;
-  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % 4 == 0);
-  err = cudaMemsetAsync(amax_scratch, 0, sizeof(unsigned), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  absmax_kernel<<<blocks_for(vec ? n / 4 + n % 4 : n, n_sm), kThreads, 0, s>>>(
-      x, n, vec, amax_scratch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_kernel<<<blocks_for((n + 3) / 4, n_sm), kThreads, 0, s>>>(
-      x, n, vec, amax_scratch, stochastic, seed, q, scale_out);
-  return static_cast<int>(cudaGetLastError());
+  int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(q) % 4 == 0);
+  void* args[] = {&x, &n, &vec, &slot, &epoch, &stochastic, &seed, &q,
+                  &scale_out};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(quant_kernel<kRegGroups>), dim3(blocks),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }
 
 extern "C" const char* quant_int8_error_string(int code) {

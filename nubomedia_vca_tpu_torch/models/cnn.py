@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..cascade.engine import _resolve_device
+from ..cascade.engine import _check_true_f32_matmul, _resolve_device
 from ..ops.resize import resize_linear_exact
 from .base import EventGate, GopScheduler, bucket_pad, gated_gop_mask
 from .face import FaceTracks
@@ -109,9 +109,14 @@ def _conv_layers(params: dict) -> list[tuple[str, int, int]]:
 
 class CnnFace(torch.nn.Module):
     """The bf16 forward (``cnn.forward``): gray [B,H,W] uint8 →
-    [B,H/16,W/16,5] float32. Weights are buffers; there is no training."""
+    [B,H/16,W/16,5] float32. Weights are buffers; there is no training.
+    Its head is two float32 matmuls, so it refuses to be built when TF32
+    would round them (``torch.backends.cuda.matmul.allow_tf32`` set or the
+    float32 matmul precision not "highest"); it changes no global
+    setting."""
 
     def __init__(self, params: dict):
+        _check_true_f32_matmul("CnnFaceDetector")
         super().__init__()
         self.layers = _conv_layers(params)
         for name, t in params_from_numpy(params).items():

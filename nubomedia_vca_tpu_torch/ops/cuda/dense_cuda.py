@@ -14,9 +14,10 @@ Port of the TPU kernel ``build_pyramid_dense_phase``
   offsets for tables of a given row length, as the kernels' shared record
   evaluator reads them (``csrc/dense_eval.cuh``, ``eval_records``);
 * ``PyramidDensePlan`` — the host tables of one set of levels (the JAX
-  kernel's ``lis`` chunk): level records, resize index/coefficient tables,
-  each level's tree records, and the work list of bands
-  (``pyramid_bands``) that the kernel's blocks take;
+  kernel's ``lis`` chunk, and the levels its row-strip kernel takes):
+  level records, resize index/coefficient tables, each level's tree
+  records, and the work list of bands (``pyramid_bands``) that the
+  kernel's blocks take;
 * ``pyramid_dense_phase_reference`` — the plain version: per level
   ``resize_linear_exact``, ``integral_image``/``sq_integral_image`` and
   ``DenseTables.evaluate`` on whole-level tables. It runs on any device;
@@ -44,14 +45,16 @@ from ..integral import integral_image, sq_integral_image
 from ..resize import _linear_exact_tables, resize_linear_exact
 from . import _build
 
-# Hopper's opt-in dynamic shared memory per block (227 KB).
+# Hopper's opt-in dynamic shared memory per block (227 KB), and the shared
+# memory of an SM, of which each resident block also takes 1 KB
 MAX_SMEM_BYTES = 232_448
+SM_SMEM_BYTES = 233_472
 # Per-level int32 record read by the kernel (kSw..kRecOff in the .cu file).
 LEVEL_FIELDS = ("sw", "sh", "step", "nx", "ny", "same", "img_base",
                 "map_base", "rx_off", "ry_off", "rec_off")
 # Per-band int32 record (kLevel..kOwn1): the level, its first grid row and
-# grid rows, its first level row and level rows (the halo included), and
-# the end of the level rows whose image it writes.
+# grid rows, its first level row and the level rows it tabulates, and the
+# end of the level rows whose image it writes.
 ITEM_FIELDS = ("level", "iy0", "n_rows", "row0", "rows", "own1")
 MAX_RECTS = 3        # rects per Haar feature (kMaxRects in dense_eval.cuh)
 MAX_GRID_Y = 65_535  # frames per launch (gridDim.y)
@@ -61,25 +64,53 @@ FEAT_WORDS = 2 + 5 * MAX_RECTS
 TREE_WORDS = 3 * FEAT_WORDS + 8
 # windows per band of the pyramid kernel: two a thread of a 256-thread block
 BAND_WINDOWS = 512
+# shared memory a band may take before it is cut below a window's height of
+# rows (pyramid_bands): three blocks an SM. On an H100 the nose's 24-level
+# launch took 457-463 us of kernel time in bands within this, 536-554 us in
+# bands of a window's height (107 KB, two blocks an SM) and 571-600 us in
+# bands within a quarter (four an SM, 202 bands).
+BAND_SMEM_TARGET = SM_SMEM_BYTES // 3 - 1024
 
 
 def pyramid_smem_bytes(l: LevelSpec) -> int:
     """Bytes of a level's whole sum and squared-sum tables, 4 B per element
-    each: the engine's route rule sends a non-tilted level to the pyramid
-    kernel when they fit one block's shared memory (the levels of one JAX
-    pyramid chunk), and larger ones to the row-strip kernel. The pyramid
-    kernel itself holds only a band's tables (``PyramidDensePlan``)."""
+    each. A level above MAX_SMEM_BYTES is *wide*: the row-strip form of the
+    TPU kernel (``dense_pallas.py:276``) took such levels, the pyramid
+    kernel takes them in bands like any other."""
     return 2 * 4 * (l.sh + 1) * (l.sw + 1)
 
 
-def pyramid_bands(l: LevelSpec, win_h: int) -> list[tuple[int, int]]:
+def band_table_bytes(l: LevelSpec, win_h: int, n_rows: int) -> int:
+    """Bytes of the two tables of a band of `n_rows` grid rows of level
+    `l`: its grid rows and the window_h - ystep halo rows below them, plus
+    the zero row."""
+    return 8 * ((n_rows - 1) * l.ystep + win_h + 1) * (l.sw + 1)
+
+
+def pyramid_fits(l: LevelSpec, win_h: int) -> bool:
+    """Whether the pyramid kernel takes level `l`: the two tables of a band
+    of one grid row (window_h level rows) fit one block's shared memory.
+    For a level of ystep 2 this reaches 1382 px wide for a 20-px window and
+    1161 px for a 24-px window, beyond the 1319 and 1116 px that a strip of
+    one window row of the row-strip kernel it replaces reached (at ystep 1
+    the two limits are equal)."""
+    return band_table_bytes(l, win_h, 1) <= MAX_SMEM_BYTES
+
+
+def pyramid_bands(l: LevelSpec, win_h: int, record_bytes: int,
+                  target: int) -> list[tuple[int, int]]:
     """The bands of level `l` in the pyramid kernel → (first grid row, grid
     rows) each: about BAND_WINDOWS windows a band, and at least window_h level
     rows a band, so that the halo (window_h - ystep rows) is at most about
     the band's own rows; the level's grid rows split as evenly as that
-    count allows. A small level is one band."""
+    count allows. A small level is one band. Where such a band's tables and
+    `record_bytes` would exceed `target` bytes, the bands are cut shorter,
+    down to one grid row."""
     per = max(-(-BAND_WINDOWS // l.nx), -(-win_h // l.ystep))
-    return _split(l.ny, max(1, min(l.ny, int(l.ny / per + 0.5))))
+    n = max(1, min(l.ny, int(l.ny / per + 0.5)))
+    spare = (target - record_bytes) // (8 * (l.sw + 1)) - 1 - win_h
+    fit = spare // l.ystep + 1 if spare >= 0 else 1
+    return _split(l.ny, min(l.ny, max(n, -(-l.ny // fit))))
 
 
 def _split(ny: int, n: int) -> list[tuple[int, int]]:
@@ -94,12 +125,12 @@ def _split(ny: int, n: int) -> list[tuple[int, int]]:
 
 def band_item(l: LevelSpec, win_h: int, iy0: int, n_rows: int) -> tuple:
     """(row0, rows, own1) of a band: its first level row, the level rows it
-    resizes and tabulates (grid rows and halo; the last band runs to the
-    level's end) and the end of the rows whose image it writes."""
+    resizes and tabulates (grid rows and halo) and the end of the rows
+    whose image it writes (for the last band the level's end, past the
+    rows any window reads)."""
     row0 = iy0 * l.ystep
-    if iy0 + n_rows == l.ny:
-        return row0, l.sh - row0, l.sh
-    return row0, (n_rows - 1) * l.ystep + win_h, (iy0 + n_rows) * l.ystep
+    own1 = l.sh if iy0 + n_rows == l.ny else (iy0 + n_rows) * l.ystep
+    return row0, (n_rows - 1) * l.ystep + win_h, own1
 
 
 def tile_records(tables: "DenseTables", pitch: int) -> np.ndarray:
@@ -192,15 +223,6 @@ class DenseTables:
             self._device[device] = tabs
         return tabs
 
-    def launch_args(self, device: torch.device) -> tuple:
-        """The kernels' cascade arguments, feat_i .. var_thr (the fields of
-        ``dense::Cascade``)."""
-        t = self.device_tables(device)
-        return (t["feat_i"].data_ptr(), t["feat_w"].data_ptr(),
-                t["weak_i"].data_ptr(), t["weak_f"].data_ptr(),
-                t["weak_i"].shape[0], t["stage_thr"].data_ptr(), self.n_dense,
-                self.norm_w, self.norm_h, self.norm_area, self.var_thr)
-
     # ------------------------------------------------------- plain version
     def evaluate(self, ii: torch.Tensor, sq: torch.Tensor,
                  iit: torch.Tensor | None, ny: int, nx: int, step: int):
@@ -276,18 +298,22 @@ class DenseTables:
 
 class PyramidDensePlan:
     """Host tables of the pyramid kernel over a set of levels of one engine
-    (the JAX kernel's chunk ``lis``): per-level records, resize tables and
-    tree records (corner offsets for the level's row length, sw + 1), and
-    the kernel's work list of bands (``items``, ITEM_FIELDS per band; the
-    bands of each level from ``pyramid_bands``, levels in order).
+    (the JAX kernel's chunk ``lis``, and the wide levels its row-strip
+    kernel took): per-level records, resize tables and tree records (corner
+    offsets for the level's row length, sw + 1), and the kernel's work list
+    of bands (``items``, ITEM_FIELDS per band; the bands of each level from
+    ``pyramid_bands`` with at most `band_target` bytes of shared memory
+    where a band can, levels in order).
 
-    ``smem_bytes`` is the largest level's whole tables (the route rule,
-    ``check_fits``); ``band_smem_bytes`` is what a block of the kernel
-    holds: the largest band's two tables, the tree records and the stage
-    thresholds."""
+    The kernel's blocks copy their level's tree records and stage
+    thresholds to shared memory when they fit beside every level's largest
+    band (``staged``), and read them through L1 otherwise.
+    ``band_smem_bytes`` is the launch's dynamic shared memory: the largest
+    band's two tables and, if staged, the records; ``n_wide`` counts the
+    wide levels (``pyramid_smem_bytes`` above MAX_SMEM_BYTES)."""
 
     def __init__(self, image_size: tuple[int, int], levels: list[LevelSpec],
-                 tables: DenseTables):
+                 tables: DenseTables, band_target: int = BAND_SMEM_TARGET):
         if tables.tilted:
             raise ValueError(
                 "the pyramid kernel takes non-tilted dense blocks; tilted "
@@ -297,12 +323,14 @@ class PyramidDensePlan:
         self.tables = tables
         win_h = tables.window_h
         n_rec = len(tables.host["weak_i"]) * TREE_WORDS
+        rec_bytes = 4 * (n_rec + tables.n_dense)
 
         # per-level records, resize tables and tree records; the bands
         lv = np.zeros((len(self.levels), len(LEVEL_FIELDS)), np.int32)
         rtab: list[np.ndarray] = []
         recs: list[np.ndarray] = []
         items: list[tuple] = []
+        tab = 0
         off = img_base = map_base = 0
         for li, l in enumerate(self.levels):
             same = (l.sw, l.sh) == (self.image_w, self.image_h)
@@ -313,22 +341,25 @@ class PyramidDensePlan:
                 rx_off, ry_off = off, off + rx.size
                 rtab += [rx, ry]
                 off += rx.size + ry.size
+            bands = pyramid_bands(l, win_h, rec_bytes, band_target)
+            tab = max([tab] + [band_table_bytes(l, win_h, n)
+                               for _, n in bands])
             lv[li] = (l.sw, l.sh, l.ystep, l.nx, l.ny, int(same),
                       img_base, map_base, rx_off, ry_off, li * n_rec)
             recs.append(tile_records(tables, l.sw + 1).reshape(-1))
             items += [(li, iy0, n, *band_item(l, win_h, iy0, n))
-                      for iy0, n in pyramid_bands(l, win_h)]
+                      for iy0, n in bands]
             if not same:
                 img_base += l.sh * l.sw
             map_base += l.ny * l.nx
         # per level: (unscaled, img_base, map_base) — output offsets per frame
         self.outputs = [(bool(r[5]), int(r[6]), int(r[7])) for r in lv]
         self.img_unit, self.map_unit = img_base, map_base
-        self.smem_bytes = max(pyramid_smem_bytes(l) for l in self.levels)
         self.items = np.asarray(items, np.int32).reshape(-1, len(ITEM_FIELDS))
-        self.band_smem_bytes = 4 * (n_rec + tables.n_dense) + max(
-            8 * (rows + 1) * (self.levels[li].sw + 1)
-            for li, _, _, _, rows, _ in self.items)
+        self.staged = tab + rec_bytes <= MAX_SMEM_BYTES
+        self.band_smem_bytes = tab + self.staged * rec_bytes
+        self.n_wide = sum(pyramid_smem_bytes(l) > MAX_SMEM_BYTES
+                          for l in self.levels)
         self._host = dict(
             levels=lv,
             items=self.items,
@@ -337,17 +368,34 @@ class PyramidDensePlan:
             records=np.concatenate(recs).astype(np.int32),
         )
         self._device: dict[torch.device, dict[str, torch.Tensor]] = {}
+        self._views: dict[int, tuple] = {}
 
     def check_fits(self) -> None:
-        """Raise ValueError when a level's whole tables exceed one block's
-        shared memory (the engine routes such levels to the row-strip
-        kernel)."""
-        if self.smem_bytes > MAX_SMEM_BYTES:
-            big = max(self.levels, key=pyramid_smem_bytes)
+        """Raise ValueError when a band of one grid row of a level does not
+        fit one block's shared memory (the engine gives such a level no
+        route)."""
+        if self.band_smem_bytes > MAX_SMEM_BYTES:
+            big = max(self.levels, key=lambda l: l.sw)
             raise ValueError(
-                f"level {big.sw}x{big.sh} needs {self.smem_bytes} B of "
-                f"integral tables > {MAX_SMEM_BYTES} B of shared memory; "
-                "the pyramid kernel takes only levels that fit")
+                f"level {big.sw}x{big.sh} needs {self.band_smem_bytes} B of "
+                f"band tables > {MAX_SMEM_BYTES} B of shared memory; the "
+                "pyramid kernel takes only levels whose bands fit")
+
+    def output_views(self, B: int) -> tuple:
+        """(sizes, shapes) of the level images and of the maps in the
+        kernel's flat outputs for B frames, as ``level_outputs`` splits
+        them; built once per batch size."""
+        views = self._views.get(B)
+        if views is None:
+            img = [(B * l.sh * l.sw, (B, l.sh, l.sw))
+                   for l, (same, _, _) in zip(self.levels, self.outputs)
+                   if not same]
+            maps = [(B * l.ny * l.nx, (B, l.ny, l.nx)) for l in self.levels]
+            views = self._views[B] = (
+                [n for n, _ in img], [s for _, s in img],
+                [n for n, _ in maps], [s for _, s in maps],
+                [same for same, _, _ in self.outputs])
+        return views
 
     def device_tables(self, device: torch.device) -> dict[str, torch.Tensor]:
         tabs = self._device.get(device)
@@ -390,20 +438,13 @@ def _check_work(work: torch.Tensor, plan: PyramidDensePlan) -> None:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the fields of dense::Cascade, in order (DenseTables.launch_args)
-CASCADE_ARGTYPES = [
-    _P, _P,                      # feat_i, feat_w
-    _P, _P, _I,                  # weak_i, weak_f, n_weak
-    _P, _I,                      # stage_thr, n_stages
-    _I, _I, _F, _F,              # norm_w, norm_h, norm_area, var_thr
-]
 _LAUNCH_ARGTYPES = [
     _I, _P,                      # device, stream
     _P, _I, _I, _I,              # work, B, H, W
     _P, _P, _I, _P,              # levels, items, n_items, rtab
     _P, _I, _P, _I,              # trees, n_weak, stage_thr, n_stages
     _I, _I, _F, _F,              # norm_w, norm_h, norm_area, var_thr
-    _I,                          # smem
+    _I, _I,                      # smem, staged
     _P, _P, _P,                  # img_out, vnf_out, alive_out
 ]
 
@@ -443,12 +484,14 @@ def _launch(work: torch.Tensor, plan: PyramidDensePlan):
         len(tabs.host["weak_i"]),
         tabs.device_tables(dev)["stage_thr"].data_ptr(), tabs.n_dense,
         tabs.norm_w, tabs.norm_h, tabs.norm_area, tabs.var_thr,
-        plan.band_smem_bytes, img_out.data_ptr(), vnf_out.data_ptr(),
-        alive_out.data_ptr())
+        plan.band_smem_bytes, int(plan.staged), img_out.data_ptr(),
+        vnf_out.data_ptr(), alive_out.data_ptr())
     if rc != 0:
         msg = lib.pyramid_dense_error_string(rc).decode()
         raise RuntimeError(f"pyramid_dense kernel launch failed: {msg} ({rc})")
     pyramid_dense_phase.launches += 1
+    if plan.n_wide:
+        pyramid_dense_phase.wide_launches += 1
     return level_outputs(plan, B, img_out, vnf_out, alive_out)
 
 
@@ -456,24 +499,23 @@ def level_outputs(plan: PyramidDensePlan, B: int, img_out: torch.Tensor,
                   vnf_out: torch.Tensor, alive_out: torch.Tensor):
     """The kernel's flat outputs as per-level (img_l | None, vnf, alive)
     views: each level's block of B frames at B times its per-frame
-    offset."""
-    out = []
-    for l, (same, img_base, map_base) in zip(plan.levels, plan.outputs):
-        img_l = None
-        if not same:
-            o = B * img_base
-            img_l = img_out[o:o + B * l.sh * l.sw].view(B, l.sh, l.sw)
-        o, n = B * map_base, B * l.ny * l.nx
-        out.append((img_l, vnf_out[o:o + n].view(B, l.ny, l.nx),
-                    alive_out[o:o + n].view(B, l.ny, l.nx)))
-    return out
+    offset, split by the sizes the plan holds for B."""
+    img_n, img_s, map_n, map_s, same = plan.output_views(B)
+    imgs = iter([t.view(s) for t, s in zip(
+        img_out.split_with_sizes(img_n), img_s)] if img_n else [])
+    vnfs = vnf_out.split_with_sizes(map_n)
+    alives = alive_out.split_with_sizes(map_n)
+    return [(None if u else next(imgs), v.view(s), a.view(s))
+            for u, v, a, s in zip(same, vnfs, alives, map_s)]
 
 
 def pyramid_dense_phase(work: torch.Tensor, plan: PyramidDensePlan):
     """work [B,H,W] uint8 → per level of the plan (img_l | None, vnf, alive).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
-    kernel (counted in ``pyramid_dense_phase.launches``) or raises.
+    kernel (counted in ``pyramid_dense_phase.launches``, and in
+    ``pyramid_dense_phase.wide_launches`` when the plan holds a wide level)
+    or raises.
     """
     _check_work(work, plan)
     if work.device.type == "cpu":
@@ -484,3 +526,4 @@ def pyramid_dense_phase(work: torch.Tensor, plan: PyramidDensePlan):
 
 
 pyramid_dense_phase.launches = 0
+pyramid_dense_phase.wide_launches = 0

@@ -1,31 +1,27 @@
-"""The dense phase of one pre-resized pyramid level: integral tables,
-variance normalization and the cascade's dense block on the level's
-ystep-strided window grid.
+"""The dense phase of one pre-resized tilted pyramid level: integral
+tables, variance normalization and the cascade's dense block on the
+level's ystep-strided window grid.
 
 Port of the TPU kernel ``build_dense_phase``
-(``nubomedia_vca_tpu/ops/pallas/dense_pallas.py:221``) in its two forms,
-both in ``csrc/dense_level.cu``:
+(``nubomedia_vca_tpu/ops/pallas/dense_pallas.py:221``) in its tilted form
+(``pallas_call`` :329), in ``csrc/dense_level.cu``; its row-strip form
+(``strip_kernel`` :276) is a band of the pyramid kernel
+(``dense_cuda.pyramid_dense_phase``).
 
-* ``dense_level_tilted`` — the tilted form (``pallas_call`` :329), which
-  also emits the sum and tilted tables for the survivor patch gather. A
-  table pass in device memory, then a tiled evaluation: the sum and
-  squared-sum tables (``integral_cuda.integral_tables``), the tilted table
-  built from the sum table (``tilted_table``), then one block per (tile,
-  frame) that stages the tile's window of the three tables in shared
-  memory and evaluates its ``tile_ny`` x ``tile_nx`` strided windows.
-  Shared memory is sized by the tile, not by the level, so every level of
-  a tilted cascade takes it;
-* ``dense_level_strips`` — the row-strip kernel (``strip_kernel`` :276,
-  ``pallas_call`` :300): non-tilted levels in strips of ``strip_gy``
-  window rows with an (h0-1)-row halo, one block per (strip, frame); with
-  one strip it is the non-tilted single block.
+``dense_level_tilted`` also emits the sum and tilted tables for the
+survivor patch gather. A table pass in device memory, then a tiled
+evaluation: the sum and squared-sum tables
+(``integral_cuda.integral_tables``), the tilted table built from the sum
+table (``tilted_table``), then one block per (tile, frame) that stages the
+tile's window of the three tables in shared memory and evaluates its
+``tile_ny`` x ``tile_nx`` strided windows. Shared memory is sized by the
+tile, not by the level, so every level of a tilted cascade takes it.
 
-``DenseLevelPlan`` holds a level's geometry and its strips or tiles;
-``dense_level_reference`` is the plain PyTorch version of both forms (the
-strip form builds strip-local tables, and the tilted form evaluates tile by
-tile on the level's tables, exactly as the kernels cut the level). A
-wrapper runs the plain version for a CPU tensor and launches the kernels
-for a CUDA tensor, or raises; it never falls back.
+``DenseLevelPlan`` holds a level's geometry and its tiles;
+``dense_level_reference`` is the plain PyTorch version, which evaluates
+tile by tile on the level's tables, exactly as the kernel cuts the level.
+The wrapper runs the plain version for a CPU tensor and launches the
+kernels for a CUDA tensor, or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -42,8 +38,8 @@ from ...cascade.pyramid import LevelSpec
 from ..integral import (integral_image, sq_integral_image,
                         tilted_from_integral, tilted_integral_image)
 from . import _build
-from .dense_cuda import (CASCADE_ARGTYPES, MAX_GRID_Y, MAX_SMEM_BYTES,
-                         TREE_WORDS, DenseTables, device_index, tile_records)
+from .dense_cuda import (MAX_GRID_Y, MAX_SMEM_BYTES, TREE_WORDS, DenseTables,
+                         device_index, tile_records)
 from .integral_cuda import integral_tables
 
 # strided windows per evaluation tile (rows, columns): one thread per
@@ -79,84 +75,39 @@ def tilted_fits(l: LevelSpec, tables: DenseTables,
     return tile_smem_bytes(l, tables, tile) <= max_smem
 
 
-def strip_plan(l: LevelSpec, win_h: int,
-               max_smem: int = MAX_SMEM_BYTES) -> tuple[int, int] | None:
-    """Row strips of a non-tilted level whose two strip tables fit
-    `max_smem` bytes → (strip_gy, n_strips), or None when even a strip of
-    one window row does not fit. strip_gy (window-origin rows per strip) is
-    a multiple of the level's ystep, so the strided grid rows land on local
-    rows 0, ystep, ... of every strip; the last strip may be ragged."""
-    gy = l.sh - win_h + 1
-    max_rows = max_smem // (8 * (l.sw + 1)) - 1       # level rows per strip
-    strip_gy = (max_rows - win_h + 1) // l.ystep * l.ystep
-    if strip_gy < l.ystep:
-        return None
-    strip_gy = min(strip_gy, -(-gy // l.ystep) * l.ystep)
-    return strip_gy, -(-gy // strip_gy)
-
-
 @dataclasses.dataclass(frozen=True)
 class DenseLevelPlan:
-    """One level of one engine for the level kernels: tilted (tiles of
+    """One tilted level of one engine for the level kernels: tiles of
     ``tile_ny`` x ``tile_nx`` strided windows, staged as ``tile_rows`` rows
-    of ``pitch`` table entries, and the tree records for that pitch) or row
-    strips."""
+    of ``pitch`` table entries, and the tree records for that pitch."""
 
     level: LevelSpec
     tables: DenseTables
-    tilted: bool
-    strip_gy: int       # strips: window-origin rows per strip (0 if tilted)
-    n_strips: int
-    tile_ny: int        # tilted: strided windows per tile (0 for strips)
+    tile_ny: int        # strided windows per tile
     tile_nx: int
-    tile_rows: int      # tilted: table rows and row length of a full tile
+    tile_rows: int      # table rows and row length of a full tile
     pitch: int
-    smem_bytes: int     # dynamic shared memory of one block
-    records: np.ndarray | None = dataclasses.field(default=None,
-                                                   compare=False)
+    smem_bytes: int     # dynamic shared memory of one evaluation block
+    records: np.ndarray = dataclasses.field(compare=False)
     _device: dict = dataclasses.field(default_factory=dict, compare=False,
                                       repr=False)
 
     @classmethod
-    def make(cls, level: LevelSpec, tables: DenseTables, tilted: bool,
+    def make(cls, level: LevelSpec, tables: DenseTables,
              max_smem: int = MAX_SMEM_BYTES,
              tile: tuple[int, int] = TILE) -> "DenseLevelPlan":
-        """The level's plan; raises ValueError when a block's tables do not
-        fit `max_smem` (tilted: a tile and the tree records; otherwise a
-        one-row strip)."""
-        h0 = tables.window_h
-        if tilted:
-            if not tilted_fits(level, tables, max_smem, tile):
-                raise ValueError(
-                    f"tilted level {level.sw}x{level.sh}: a tile of "
-                    f"{tile[0]}x{tile[1]} windows needs "
-                    f"{tile_smem_bytes(level, tables, tile)} B > {max_smem} "
-                    "B of shared memory")
-            rows, pitch = tile_shape(level, tables, tile)
-            return cls(level, tables, True, 0, 0, tile[0], tile[1], rows,
-                       pitch, tile_smem_bytes(level, tables, tile),
-                       tile_records(tables, pitch))
-        if tables.tilted:
-            raise ValueError("the strip kernel takes non-tilted dense blocks")
-        plan = strip_plan(level, h0, max_smem)
-        if plan is None:
+        """The level's plan; raises ValueError when a tile and the tree
+        records do not fit `max_smem` bytes of shared memory."""
+        if not tilted_fits(level, tables, max_smem, tile):
             raise ValueError(
-                f"level {level.sw}x{level.sh} is too wide for a row strip "
-                f"in {max_smem} B of shared memory")
-        strip_gy, n_strips = plan
-        rows = min(strip_gy + h0 - 1, level.sh)
-        return cls(level, tables, False, strip_gy, n_strips, 0, 0, 0, 0,
-                   8 * (rows + 1) * (level.sw + 1))
-
-    def strips(self):
-        """(first level row, level rows, grid rows) of each strip, as the
-        kernel's blocks cut them."""
-        l, h0 = self.level, self.tables.window_h
-        for s in range(self.n_strips):
-            row0 = s * self.strip_gy
-            iy1 = min(l.ny, (row0 + self.strip_gy) // l.ystep)
-            yield (row0, min(self.strip_gy + h0 - 1, l.sh - row0),
-                   iy1 - row0 // l.ystep)
+                f"tilted level {level.sw}x{level.sh}: a tile of "
+                f"{tile[0]}x{tile[1]} windows needs "
+                f"{tile_smem_bytes(level, tables, tile)} B > {max_smem} "
+                "B of shared memory")
+        rows, pitch = tile_shape(level, tables, tile)
+        return cls(level, tables, tile[0], tile[1], rows, pitch,
+                   tile_smem_bytes(level, tables, tile),
+                   tile_records(tables, pitch))
 
     def device_records(self, device: torch.device) -> torch.Tensor:
         """The tree records on `device`, copied once."""
@@ -223,22 +174,12 @@ def _evaluate_tiles(plan: DenseLevelPlan, ii, sq, iit):
 
 
 def dense_level_reference(img: torch.Tensor, plan: DenseLevelPlan):
-    """Plain PyTorch version of both forms, on ``img``'s device → tilted:
-    (ii, iit, vnf, alive); strips: (None, None, vnf, alive)."""
+    """Plain PyTorch version, on ``img``'s device → (ii, iit, vnf,
+    alive)."""
     _check_img(img, plan)
-    l, tabs = plan.level, plan.tables
-    if plan.tilted:
-        ii, iit = integral_image(img), tilted_integral_image(img)
-        vnf, alive = _evaluate_tiles(plan, ii, sq_integral_image(img), iit)
-        return ii, iit, vnf, alive
-    vnfs, alives = [], []
-    for row0, rows, n_rows in plan.strips():
-        x = img[:, row0:row0 + rows]
-        vnf, alive = tabs.evaluate(integral_image(x), sq_integral_image(x),
-                                   None, n_rows, l.nx, l.ystep)
-        vnfs.append(vnf)
-        alives.append(alive)
-    return None, None, torch.cat(vnfs, 1), torch.cat(alives, 1)
+    ii, iit = integral_image(img), tilted_integral_image(img)
+    vnf, alive = _evaluate_tiles(plan, ii, sq_integral_image(img), iit)
+    return ii, iit, vnf, alive
 
 
 # ------------------------------------------------------------------ kernels
@@ -265,15 +206,6 @@ _I = ctypes.c_int
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("dense_level")
-    lib.dense_strips_launch.argtypes = [
-        _I, _P,                      # device, stream
-        _P, _I, _I, _I,              # img, B, sh, sw
-        _I, _I, _I,                  # step, nx, ny
-        _I, _I, _I,                  # strip_gy, n_strips, win_h
-        *CASCADE_ARGTYPES,
-        _I,                          # smem
-        _P, _P,                      # vnf_out, alive_out
-    ]
     lib.tilted_table_launch.argtypes = [
         _I, _P,                      # device, stream
         _P, _I, _I, _I,              # ii, B, H, W
@@ -291,8 +223,7 @@ def _library() -> ctypes.CDLL:
         _I,                          # smem
         _P, _P,                      # vnf_out, alive_out
     ]
-    for name in ("dense_strips_launch", "tilted_table_launch",
-                 "tilted_eval_launch"):
+    for name in ("tilted_table_launch", "tilted_eval_launch"):
         getattr(lib, name).restype = ctypes.c_int
     lib.dense_level_error_string.argtypes = [ctypes.c_int]
     lib.dense_level_error_string.restype = ctypes.c_char_p
@@ -368,8 +299,6 @@ def dense_level_tilted(img: torch.Tensor, plan: DenseLevelPlan):
     ``tilted_table`` (counted there) and the tiled evaluation kernel
     (counted in ``dense_level_tilted.launches``, one per call); on a CPU
     tensor the plain version."""
-    if not plan.tilted:
-        raise ValueError("plan is for the strip kernel")
     _check_img(img, plan)
     if img.device.type == "cpu":
         return dense_level_reference(img, plan)
@@ -383,32 +312,5 @@ def dense_level_tilted(img: torch.Tensor, plan: DenseLevelPlan):
     return ii, iit, vnf, alive
 
 
-def dense_level_strips(img: torch.Tensor, plan: DenseLevelPlan):
-    """Level image [B,sh,sw] uint8 → (vnf [B,ny,nx] float32, alive
-    [B,ny,nx] uint8) with the row-strip kernel (counted in
-    ``dense_level_strips.launches``) on a CUDA tensor, the plain version on
-    a CPU tensor."""
-    if plan.tilted:
-        raise ValueError("plan is for the tilted kernels")
-    _check_img(img, plan)
-    if img.device.type == "cpu":
-        return dense_level_reference(img, plan)[2:]
-    if img.device.type != "cuda":
-        raise ValueError(f"no dense level kernel for {img.device}")
-    l, B, dev = plan.level, img.shape[0], img.device
-    _check_frames(B)
-    lib = _library()
-    vnf = torch.empty((B, l.ny, l.nx), dtype=torch.float32, device=dev)
-    alive = torch.empty((B, l.ny, l.nx), dtype=torch.uint8, device=dev)
-    _raise_on(lib, lib.dense_strips_launch(
-        *_stream(dev), img.data_ptr(), B, l.sh, l.sw, l.ystep, l.nx, l.ny,
-        plan.strip_gy, plan.n_strips, plan.tables.window_h,
-        *plan.tables.launch_args(dev), plan.smem_bytes, vnf.data_ptr(),
-        alive.data_ptr()), "dense_strips")
-    dense_level_strips.launches += 1
-    return vnf, alive
-
-
 dense_level_tilted.launches = 0
-dense_level_strips.launches = 0
 tilted_table.launches = 0

@@ -5,12 +5,18 @@ Port of the TPU kernels ``quantize_int8_pallas`` and
 (``nubomedia_vca_tpu/ops/pallas/quant_pallas.py:73``, ``:100``). The int8
 learned detector (``models/quant.py``) quantizes every layer's input with
 ``quantize_int8``. A CUDA tensor launches ``csrc/quant_int8.cu`` (counted in
-``quantize_int8.launches`` and ``quantize_int8_stochastic.launches``, once
-per call: a call is two launches, a reduction and the quantizing pass) or
-raises; a CPU tensor runs the plain version of ``ops/quant.py``. Unlike the
-TPU kernel there is no size ceiling (its 1.5M-element limit was VMEM's),
-and unlike the JAX function the stochastic quantizer never falls back to
-deterministic rounding.
+``quantize_int8.launches`` and ``quantize_int8_stochastic.launches``, one
+launch per call: a cooperative launch with a grid-wide barrier between the
+maximum and the quantizing pass) or raises; a CPU tensor runs the plain
+version of ``ops/quant.py``. Unlike the TPU kernel there is no size ceiling
+(its 1.5M-element limit was VMEM's), and unlike the JAX function the
+stochastic quantizer never falls back to deterministic rounding.
+
+The kernel's grid is ``launch_blocks``: enough blocks that every thread
+keeps REG_GROUPS groups of 4 elements in registers, at most as many as the
+device runs at once (asked once per device). Its running maximum lives in a
+``MaxSlot`` per device and stream, tagged with a new epoch per call, so
+nothing is cleared or allocated per call but the outputs.
 """
 
 from __future__ import annotations
@@ -25,17 +31,76 @@ from ..quant import (MASK32, quantize_int8_reference,
 from . import _build
 from .dense_cuda import device_index
 
+THREADS = 256      # threads a block (kThreads in csrc/quant_int8.cu)
+REG_GROUPS = 8     # groups of 4 elements a thread keeps (kRegGroups)
+EPOCHS = 1 << 32   # slot word = epoch << 32 | max bits
+
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("quant_int8")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.quant_int8_launch.argtypes = [I, P, P, ctypes.c_longlong, I,
-                                      ctypes.c_uint, P, P, P]
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.quant_int8_launch.argtypes = [I, P, P, ctypes.c_longlong, I, U, I, P,
+                                      U, P, P]
     lib.quant_int8_launch.restype = ctypes.c_int
+    lib.quant_int8_max_blocks.argtypes = [I, ctypes.POINTER(ctypes.c_int)]
+    lib.quant_int8_max_blocks.restype = ctypes.c_int
     lib.quant_int8_error_string.argtypes = [ctypes.c_int]
     lib.quant_int8_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, rc: int) -> None:
+    if rc != 0:
+        msg = lib.quant_int8_error_string(rc).decode()
+        raise RuntimeError(f"quant_int8 kernel launch failed: {msg} ({rc})")
+
+
+@functools.cache
+def max_blocks(device: int) -> int:
+    """The most blocks of the kernel that `device` runs at once."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    _raise_on(lib, lib.quant_int8_max_blocks(device, ctypes.byref(out)))
+    return out.value
+
+
+def launch_blocks(n: int, most: int) -> int:
+    """Blocks for n elements: one per THREADS * REG_GROUPS groups of 4, at
+    least 1 and at most `most`. Thread t of T keeps groups k * T + t
+    (k < REG_GROUPS) and streams groups REG_GROUPS * T + t + i * T."""
+    per_block = THREADS * REG_GROUPS
+    return max(1, min(most, -(-(-(-n // 4)) // per_block)))
+
+
+class MaxSlot:
+    """The kernel's running maximum on one device and stream: one 64-bit
+    word, (epoch << 32) | the bits of max|x|. ``take`` returns the slot's
+    address and a new epoch for a call; a call's values exceed every value
+    of the calls before it, so the slot is only cleared when the 32-bit
+    epoch wraps."""
+
+    def __init__(self, device: torch.device):
+        self.slot = torch.zeros(1, dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    def take(self) -> tuple[int, int]:
+        self.epoch += 1
+        if self.epoch == EPOCHS:
+            self.slot.zero_()
+            self.epoch = 1
+        return self.slot.data_ptr(), self.epoch
+
+
+_SLOTS: dict[tuple[int, int], MaxSlot] = {}
+
+
+def _slot(dev: torch.device, stream: int) -> MaxSlot:
+    key = (device_index(dev), stream)
+    s = _SLOTS.get(key)
+    if s is None:
+        s = _SLOTS[key] = MaxSlot(torch.device("cuda", key[0]))
+    return s
 
 
 def _check(x: torch.Tensor) -> None:
@@ -51,16 +116,15 @@ def _check(x: torch.Tensor) -> None:
 
 def _launch(x: torch.Tensor, stochastic: bool, seed: int):
     lib = _library()
+    dev = device_index(x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(1, dtype=torch.int32, device=x.device)
-    rc = lib.quant_int8_launch(
-        device_index(x.device), torch.cuda.current_stream(x.device).cuda_stream,
-        x.data_ptr(), x.numel(), int(stochastic), seed & MASK32,
-        scratch.data_ptr(), q.data_ptr(), scale.data_ptr())
-    if rc != 0:
-        msg = lib.quant_int8_error_string(rc).decode()
-        raise RuntimeError(f"quant_int8 kernel launch failed: {msg} ({rc})")
+    slot, epoch = _slot(x.device, stream).take()
+    _raise_on(lib, lib.quant_int8_launch(
+        dev, stream, x.data_ptr(), x.numel(), int(stochastic), seed & MASK32,
+        launch_blocks(x.numel(), max_blocks(dev)), slot, epoch, q.data_ptr(),
+        scale.data_ptr()))
     return q, scale
 
 

@@ -238,3 +238,26 @@ def test_checkpoint_ships_inside_the_port():
     assert path and os.path.dirname(path) == pcnn.CHECKPOINT_DIR
     with open(path, "rb") as a, open(jcnn.find_checkpoint(), "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("setting", ["allow_tf32", "precision"])
+def test_bf16_detector_requires_true_f32_matmul(setting):
+    """The bf16 detector's float32 head stays float32: it refuses to be
+    built when TF32 would round its matmuls, and flips no global switch;
+    the int8 detector has no float32 matmul and is built either way."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        if setting == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        with pytest.raises(RuntimeError, match="TF32|highest"):
+            CnnFaceDetector((1280, 720), device="cpu")
+        QuantizedCnnFaceDetector((1280, 720), device="cpu")
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.get_float32_matmul_precision()) != saved
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    CnnFaceDetector((1280, 720), device="cpu")

@@ -1,7 +1,8 @@
 """CUDA tests of the PyTorch port: each hand-written kernel (the pyramid
-dense kernel, the tilted kernels and the row-strip kernel of the level
-dense phase, the tilted-table kernel, the integral-tables kernel, the int8
-quantizers) against its plain PyTorch
+dense kernel, its bands on the levels the row-strip kernel took before
+included, the tilted kernels of the level dense phase, the tilted-table
+kernel, the integral-tables kernel, the int8 quantizers) against its plain
+PyTorch
 version on the card, and the face, part and learned detectors on CUDA
 against the port's CPU run.
 
@@ -81,12 +82,12 @@ def test_kernel_equals_plain_version(cuda_device, size, factor):
 
 
 def test_kernel_equals_plain_version_on_nose_plan(cuda_device):
-    """The nose's 20-level launch of the part chain at 720p (320x180 part
-    image, levels 219x123 .. 36x20 in 43 bands): level images, vnf and
+    """The nose's 24-level launch of the part chain at 720p (320x180 part
+    image, levels 320x180 .. 36x20 in 88 bands): level images, vnf and
     alive exactly, on faces and noise."""
     nose = NoseDetector((1280, 720), device=cuda_device).part_engines["nose"]
     plan = nose._plan
-    assert len(plan.levels) == 20 and len(plan.items) == 43
+    assert len(plan.levels) == 24 and len(plan.items) == 88
     work = _part_work((320, 180)).to(cuda_device)
     before = dense_cuda.pyramid_dense_phase.launches
     got = dense_cuda.pyramid_dense_phase(work, plan)
@@ -111,22 +112,23 @@ def test_kernel_wrapper_checks_inputs(cuda_device):
                         device=cuda_device).transpose(1, 2), eng._plan)
 
 
-def test_large_level_takes_strip_kernel_on_cuda(cuda_device):
+def test_large_level_takes_band_kernel_on_cuda(cuda_device):
     """A 320-px work image has levels beyond one block's shared memory:
-    they go to the row-strip kernel, one launch per such level, and the
-    raw candidates equal the CPU engine's."""
+    they go to the pyramid kernel in bands, in the one launch of all
+    levels (counted as a wide launch too), and the raw candidates equal
+    the CPU engine's."""
     casc = load_cascade(DEFAULT_FACE_CASCADE)
     eng = CascadeEngine(casc, (320, 180), device=cuda_device)
-    n_strip = eng.routes.count("strips")
-    assert n_strip > 0 and eng.routes.count("pyramid") > 0
+    assert eng.routes == ["pyramid"] * len(eng.levels)
+    assert eng._plan.n_wide > 0
     frames = np.stack([face_scene(320, 180, faces=((160, 90, 60),), seed=s)
                        for s in range(4)])
-    before = (dense_level_cuda.dense_level_strips.launches,
+    before = (dense_cuda.pyramid_dense_phase.wide_launches,
               dense_cuda.pyramid_dense_phase.launches)
     got = eng.detect_raw(frames)
     torch.cuda.synchronize()
-    assert (dense_level_cuda.dense_level_strips.launches - before[0],
-            dense_cuda.pyramid_dense_phase.launches - before[1]) == (n_strip, 1)
+    assert (dense_cuda.pyramid_dense_phase.wide_launches - before[0],
+            dense_cuda.pyramid_dense_phase.launches - before[1]) == (1, 1)
     want = CascadeEngine(casc, (320, 180), device="cpu").detect_raw(frames)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -161,7 +163,7 @@ def test_tilted_kernel_equals_plain_version(cuda_device, name, min_size):
     assert (eng.levels[0].sw, eng.levels[0].sh) == (320, 180)
     plans = [(li, plan) for li, plan in eng._level_plans.items()]
     plans.append((0, dense_level_cuda.DenseLevelPlan.make(
-        eng.levels[0], eng._tables, tilted=True, tile=(5, 7))))
+        eng.levels[0], eng._tables, tile=(5, 7))))
     work = _part_work((320, 180)).to(cuda_device)
     counters = (dense_level_cuda.dense_level_tilted,
                 dense_level_cuda.tilted_table, integral_cuda.integral_tables)
@@ -204,35 +206,54 @@ def test_no_engine_has_a_tables_route(cuda_device):
     for det in (NoseDetector, MouthDetector, EyeDetector):
         d = det((1280, 720), device=cuda_device)
         for eng in (d.face_engine, *d.part_engines.values()):
-            assert set(eng.routes) <= {"pyramid", "strips", "tilted"}
+            assert set(eng.routes) <= {"pyramid", "tilted"}
             if eng._uses_tilt:
                 assert eng.routes == ["tilted"] * len(eng.levels)
                 assert sorted(eng._level_plans) == list(
                     range(len(eng.levels)))
 
 
-def test_strip_kernel_equals_plain_version(cuda_device):
-    """The row-strip kernel on the nose's four strip levels at 320x180
-    (ragged last strips), and with one strip on a level the pyramid kernel
-    takes: vnf and alive exactly."""
+@pytest.mark.parametrize("target", [dense_cuda.BAND_SMEM_TARGET,
+                                    dense_cuda.MAX_SMEM_BYTES, 0])
+def test_band_kernel_equals_plain_version_on_wide_levels(cuda_device,
+                                                         target):
+    """The pyramid kernel on the nose's four wide levels at 320x180 (the
+    row-strip kernel's before), in the default bands (three blocks an SM),
+    in bands of a window's height and in bands of one grid row: level
+    images, vnf and alive exactly."""
     eng = CascadeEngine(
         load_cascade(os.path.join(PKG_ASSETS_DIR, "vca_nose_synthetic.xml")),
         (320, 180), 1.1, min_size=(1, 1), device=cuda_device)
-    plans = dict(eng._level_plans)
-    assert sorted(plans) == [0, 1, 2, 3]
-    plans[4] = dense_level_cuda.DenseLevelPlan.make(
-        eng.levels[4], eng._tables, tilted=False)
-    assert plans[4].n_strips == 1
+    plan = dense_cuda.PyramidDensePlan((320, 180), eng.levels[:4],
+                                       eng._tables, band_target=target)
+    assert plan.n_wide == 4
     work = _part_work((320, 180)).to(cuda_device)
-    for li, plan in plans.items():
-        l = eng.levels[li]
-        img = resize_linear_exact(work, (l.sw, l.sh))
-        got = dense_level_cuda.dense_level_strips(img, plan)
-        want = dense_level_cuda.dense_level_reference(img, plan)[2:]
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0]), f"level {li} vnf"
-        assert torch.equal(got[1], want[1]), f"level {li} alive"
-        assert got[1].sum() > 0
+    got = dense_cuda.pyramid_dense_phase(work, plan)
+    want = dense_cuda.pyramid_dense_phase_reference(work, plan)
+    torch.cuda.synchronize()
+    _levels_equal(got, want)
+    assert sum(int(a.sum()) for _, _, a in got) > 0
+
+
+def test_band_kernel_reads_records_through_l1_on_widest_level(cuda_device):
+    """At the widest level the pyramid kernel takes (1382 px for a 20-px
+    window) a band of one grid row leaves no room for the tree records:
+    the launch's blocks read them through L1, and all levels equal the
+    plain version."""
+    eng = CascadeEngine(load_cascade(DEFAULT_FACE_CASCADE), (1382, 60),
+                        1.25, device=cuda_device)
+    plan = eng._plan
+    assert not plan.staged
+    frames = np.stack(
+        [face_scene(1382, 60, faces=((300 * s, 30, 40),), seed=s)
+         for s in range(1, 4)]
+        + [np.random.RandomState(1).randint(0, 256, (60, 1382), np.uint8)])
+    work = torch.from_numpy(frames).to(cuda_device)
+    got = dense_cuda.pyramid_dense_phase(work, plan)
+    want = dense_cuda.pyramid_dense_phase_reference(work, plan)
+    torch.cuda.synchronize()
+    _levels_equal(got, want)
+    assert sum(int(a.sum()) for _, _, a in got) > 0
 
 
 @pytest.mark.parametrize("hw", [(180, 320), (112, 199), (37, 53), (1, 1),
@@ -317,6 +338,28 @@ def test_quant_kernels_equal_plain_versions(cuda_device, n, offset):
         want = quant.quantize_int8_stochastic_reference(x, seed)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def test_quant_kernel_slot_holds_each_calls_maximum(cuda_device):
+    """The maximum slot is never cleared between calls: a call after one
+    with a larger maximum, on the same stream and on another, still takes
+    its own scale; the grid is asked once per device."""
+    big = torch.full((5000,), 1e6, device=cuda_device)
+    rng = np.random.RandomState(3)
+    xs = [torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda_device)
+          for n in (7, 70_000, 5_000_000)]
+    side = torch.cuda.Stream(cuda_device)
+    for x in xs:
+        quant_cuda.quantize_int8(big)
+        side.wait_stream(torch.cuda.current_stream(cuda_device))
+        for stream in (torch.cuda.current_stream(cuda_device), side):
+            with torch.cuda.stream(stream):
+                got = quant_cuda.quantize_int8(x)
+                want = quant.quantize_int8_reference(x)
+            stream.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    assert quant_cuda.max_blocks.cache_info().misses == 1
 
 
 def test_quant_kernel_on_all_zero_tensor(cuda_device):

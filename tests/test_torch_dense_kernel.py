@@ -7,8 +7,9 @@
   them, by a numpy mirror of the kernel's arithmetic: checks the table
   layout the CUDA kernel gets, which only a GPU can run.
 * The wrapper: CPU tensors take the plain version and launch nothing; bad
-  inputs raise; the plan takes only levels within one block's shared
-  memory (the engine routes larger ones to the row-strip kernel).
+  inputs raise; the plan cuts a level too large for one block into bands
+  that fit (down to one grid row), and takes every level of a 320-px work
+  image, the levels the row-strip kernel took before included.
 
 The CUDA kernel itself is compared with the plain version on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -277,7 +278,9 @@ def _band_mirror(plan, work, records):
     for li, iy0, n_rows, row0, rows, own1 in plan.items.tolist():
         sw, sh, step, nx, _, same, _, _, rxo, ryo, reco = (
             int(v) for v in t["levels"][li])
-        ys = np.arange(row0, row0 + rows)
+        # the band's tabulated rows, and the rows it resizes: the last band
+        # of a level also its bottom rows that no window reads
+        ys = np.arange(row0, row0 + (rows if same else max(rows, own1 - row0)))
         if same:
             px = src[:, ys]
         else:
@@ -290,6 +293,7 @@ def _band_mirror(plan, work, records):
             own = ys[ys < own1]
             out[li][0][:, own] = px[:, :len(own)]
             n_img[li][own] += 1
+        px = px[:, :rows]
         ii = np.zeros((B, rows + 1, sw + 1), np.uint32)
         sq = np.zeros_like(ii)
         ii[:, 1:, 1:] = px.cumsum(-1).cumsum(-2)
@@ -311,7 +315,7 @@ def _band_mirror(plan, work, records):
 @pytest.fixture(scope="module")
 def band_plans(engines, work):
     """(plan, work images) of the pyramid kernel: the face engine at 160x90
-    and 160x120 (720p and 480p frames), and the nose's 20-level launch of
+    and 160x120 (720p and 480p frames), and the nose's 24-level launch of
     the part chain at 320x180; faces and noise."""
     _, peng = engines
     face120 = CascadeEngine(peng.cascade, (160, 120), 1.25, device="cpu")
@@ -331,7 +335,7 @@ def band_plans(engines, work):
 
 @pytest.mark.parametrize("name,n_levels,n_bands", [
     ("face 160x90", 7, 13), ("face 160x120", 9, 18),
-    ("nose 320x180", 20, 43)])
+    ("nose 320x180", 24, 88)])
 def test_band_mirror_reproduces_plain_version(band_plans, name, n_levels,
                                               n_bands):
     """The pyramid kernel's band geometry, mirrored in numpy: each window
@@ -341,7 +345,8 @@ def test_band_mirror_reproduces_plain_version(band_plans, name, n_levels,
     moved by one in the tree records breaks the equality."""
     plan, work = band_plans[name]
     assert (len(plan.levels), len(plan.items)) == (n_levels, n_bands)
-    assert plan.band_smem_bytes < plan.smem_bytes // 2
+    assert plan.band_smem_bytes < max(
+        dense_cuda.pyramid_smem_bytes(l) for l in plan.levels) // 2
     plan.check_fits()
     records = plan._host["records"]
     got, n_win, n_img = _band_mirror(plan, work, records)
@@ -395,25 +400,76 @@ def test_wrapper_checks_inputs(engines):
                                           ((160, 120), True),
                                           ((320, 180), False)])
 def test_plan_shared_memory_budget(engines, work_wh, fits):
-    """The pyramid kernel takes the levels whose two integral tables fit
-    one block's 227 KB of shared memory (160x120: 161*121*8 = 155,848 B);
-    the engine sends larger levels to the row-strip kernel, and a plan
-    given one raises."""
+    """A plan's launch takes the shared memory of its largest band (two
+    band tables, the tree records and the stage thresholds), never a whole
+    level's tables: at 160x90 and 160x120 every level's whole tables would
+    fit one block (161*121*8 = 155,848 B), at 320x180 (factor 1.25) the
+    largest two do not (`fits` False: wide levels, which the row-strip
+    kernel took), and
+    the engine routes all of them to the pyramid kernel in bands that do."""
     _, peng = engines
     eng = CascadeEngine(peng.cascade, work_wh, device="cpu")
     w, h = work_wh
     assert dense_cuda.pyramid_smem_bytes(eng.levels[0]) == 8 * (w + 1) * (h + 1)
-    plan = dense_cuda.PyramidDensePlan(work_wh, eng.levels, eng._tables)
-    if fits:
-        assert eng.routes == ["pyramid"] * len(eng.levels)
-        plan.check_fits()
+    assert (dense_cuda.pyramid_smem_bytes(eng.levels[0])
+            <= dense_cuda.MAX_SMEM_BYTES) == fits
+    assert eng.routes == ["pyramid"] * len(eng.levels)
+    plan = eng._plan
+    assert plan.levels == tuple(eng.levels)
+    assert plan.n_wide == (0 if fits else 2)
+    plan.check_fits()
+    rec = 4 * (len(eng._tables.host["weak_i"]) * dense_cuda.TREE_WORDS
+               + eng._tables.n_dense)
+    assert plan.staged
+    assert plan.band_smem_bytes == rec + max(
+        8 * (rows + 1) * (eng.levels[li].sw + 1)
+        for li, _, _, _, rows, _ in plan.items.tolist())
+    assert plan.band_smem_bytes <= dense_cuda.MAX_SMEM_BYTES
+
+
+@pytest.fixture(scope="module")
+def nose_wide():
+    """The nose's four wide levels at 320x180 (320x180 .. 240x135, whose
+    whole tables exceed one block) and a 720p work image of faces and
+    noise."""
+    nose = NoseDetector((1280, 720), device="cpu").part_engines["nose"]
+    face = equalize_hist(resize_linear_exact(
+        torch.from_numpy(face_clip(1, 1280, 720, seed=4)), (320, 180)))
+    noise = np.random.RandomState(6).randint(0, 256, (1, 180, 320), np.uint8)
+    return nose, np.concatenate([face.numpy(), noise])
+
+
+@pytest.mark.parametrize("target,n_bands", [
+    (dense_cuda.BAND_SMEM_TARGET, 45), (dense_cuda.MAX_SMEM_BYTES, 28),
+    (0, 277)])
+def test_band_mirror_on_wide_levels(nose_wide, target, n_bands):
+    """The bands of the nose's four wide levels, mirrored in numpy, give
+    the plain version's whole-level result exactly, with the default cut
+    (three blocks an SM), with bands of a window's height (107 KB a
+    block), and with bands of one grid row (target 0): each window and
+    level-image row written once."""
+    nose, work = nose_wide
+    levels = nose.levels[:4]
+    assert all(dense_cuda.pyramid_smem_bytes(l) > dense_cuda.MAX_SMEM_BYTES
+               for l in levels)
+    plan = dense_cuda.PyramidDensePlan((320, 180), levels, nose._tables,
+                                       band_target=target)
+    assert len(plan.items) == n_bands and plan.n_wide == 4
+    if target == 0:
+        assert (plan.items[:, 2] == 1).all()
     else:
-        assert eng.routes[0] == "strips" and "pyramid" in eng.routes
-        assert eng._plan.levels == tuple(
-            l for l, r in zip(eng.levels, eng.routes) if r == "pyramid")
-        eng._plan.check_fits()
-        with pytest.raises(ValueError, match="shared memory"):
-            plan.check_fits()
+        assert plan.band_smem_bytes <= target
+    got, n_win, n_img = _band_mirror(plan, work, plan._host["records"])
+    want = dense_cuda.pyramid_dense_phase_reference(torch.from_numpy(work),
+                                                    plan)
+    for li, ((gi, gv, ga), (wi, wv, wa)) in enumerate(zip(got, want)):
+        assert (n_win[li] == 1).all(), li
+        if gi is not None:
+            assert (n_img[li] == 1).all(), li
+            assert np.array_equal(gi, wi.numpy()), li
+        assert np.array_equal(gv, wv.numpy()), li
+        assert np.array_equal(ga, wa.numpy()), li
+    assert sum(int(a.sum()) for _, _, a in want) > 0
 
 
 @pytest.mark.parametrize("where", ["env", "checkout", "installed"])

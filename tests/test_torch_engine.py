@@ -189,16 +189,18 @@ def test_tilted_engine_matches_jax(side, n_stages, n_blocks):
 
 def test_no_block_engine_matches_jax():
     """The nose cascade (3 stages, 6 weak trees: all in the dense block,
-    no matmul block) at the part chain's 320x180: the four largest levels
-    take the row-strip route (ragged last strips), the others the pyramid
-    kernel's; the dense survivors are emitted as they are. Raw output equal
-    to the JAX engine's slot for slot."""
+    no matmul block) at the part chain's 320x180: every level takes the
+    pyramid kernel's route, the four largest (which the JAX engine runs in
+    row strips) in bands of 4-10 grid rows; the dense survivors are
+    emitted as they are. Raw output equal to the JAX engine's slot for
+    slot."""
     casc = load_cascade_xml(NOSE_XML)
     peng = CascadeEngine(cascade_from_numpy(dataclasses.asdict(casc)),
                          (320, 180), 1.1, min_size=(1, 1), device="cpu")
     assert not peng._blocks and peng.n_dense_stages == casc.n_stages == 3
-    assert peng.routes == ["strips"] * 4 + ["pyramid"] * 20
-    assert [peng._level_plans[li].n_strips for li in range(4)] == [3, 2, 2, 2]
+    assert peng.routes == ["pyramid"] * 24 and peng._plan.n_wide == 4
+    assert [int((peng._plan.items[:, 0] == li).sum()) for li in range(4)] \
+        == [17, 13, 9, 6]
     jeng = JaxEngine(casc, (320, 180), 1.1, min_size=(1, 1))
     frames = face_clip(2, 1280, 720, seed=11)
     work = np.asarray(j_equalize(j_resize(jnp.asarray(frames), (320, 180))))

@@ -14,14 +14,18 @@ versions, against the JAX package's Pallas kernels in interpret mode:
   evaluation;
 * the tilted-table kernel's plain version against the image's tilted
   table;
-* ``dense_level_cuda`` in its row-strip form against the Pallas strip
+* the row-strip form of ``build_dense_phase``, which the pyramid kernel's
+  bands (``dense_cuda.pyramid_dense_phase``) replace: the Pallas strip
   kernel (forced to several strips through the JAX engine instance's
-  ``PALLAS_DENSE_MAX_ELEMS``) and against a whole-level evaluation;
-* a numpy mirror of ``csrc/dense_level.cu`` (strip-local uint32 tables;
-  the tilted table along the diagonals, the staged tiles, the tree records
-  with their corner offsets; the packed feature records) against the plain
-  version: the layout the CUDA kernels read, which only a GPU can run;
-* the engine's per-level routing at the part chain's 720p geometry.
+  ``PALLAS_DENSE_MAX_ELEMS``) against the pyramid kernel's plain version,
+  and bands of every height down to one grid row (the numpy mirror of
+  ``tests/test_torch_dense_kernel.py``) against the whole level;
+* a numpy mirror of ``csrc/dense_level.cu`` (the tilted table along the
+  diagonals, the staged tiles, the tree records with their corner
+  offsets) against the plain version: the layout the CUDA kernels read,
+  which only a GPU can run;
+* the engine's per-level routing at the part chain's 720p geometry, and
+  the widest level the pyramid kernel takes.
 
 The CUDA kernels themselves are held to their plain versions on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -49,16 +53,22 @@ from nubomedia_vca_tpu_torch.cascade.pyramid import LevelSpec
 from nubomedia_vca_tpu_torch.cascade.xml_loader import (cascade_from_numpy,
                                                         load_cascade_xml as
                                                         port_load)
-from nubomedia_vca_tpu_torch.ops.cuda import dense_level_cuda, integral_cuda
+from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
+                                              integral_cuda)
 from nubomedia_vca_tpu_torch.ops.cuda.dense_cuda import (FEAT_WORDS,
                                                          MAX_SMEM_BYTES,
-                                                         TREE_WORDS)
+                                                         TREE_WORDS,
+                                                         PyramidDensePlan,
+                                                         pyramid_dense_phase,
+                                                         pyramid_fits)
 from nubomedia_vca_tpu_torch.ops.cuda.dense_level_cuda import (
     DenseLevelPlan, dense_level_reference)
 from nubomedia_vca_tpu_torch.ops.integral import (integral_image,
                                                   sq_integral_image,
                                                   tilted_integral_image)
 from nubomedia_vca_tpu_torch.utils.synth import face_scene
+
+from .test_torch_dense_kernel import _band_mirror
 
 torch.set_num_threads(2)
 
@@ -260,7 +270,7 @@ def test_tilted_plain_matches_pallas(tilted_engines, pallas_levels, tile,
     n_alive = 0
     for li, (l, (img, (w_ii, w_iit, w_vnf, w_alive))) in enumerate(
             zip(peng.levels, pallas_levels)):
-        plan = DenseLevelPlan.make(l, peng._tables, tilted=True, tile=tile)
+        plan = DenseLevelPlan.make(l, peng._tables, tile=tile)
         assert plan.n_tiles == n_tiles[li]
         ii, iit, vnf, alive = dense_level_reference(torch.from_numpy(img),
                                                     plan)
@@ -319,7 +329,7 @@ def test_tile_size_does_not_change_result(large_tilted_level, tile, n_tiles):
     """Any tile geometry gives the whole-level evaluation exactly (vnf and
     alive), through the CPU wrapper, which launches nothing."""
     peng, l, img, _ = large_tilted_level
-    plan = DenseLevelPlan.make(l, peng._tables, tilted=True, tile=tile)
+    plan = DenseLevelPlan.make(l, peng._tables, tile=tile)
     assert plan.n_tiles == n_tiles
     x = torch.from_numpy(img)
     before = (dense_level_cuda.dense_level_tilted.launches,
@@ -366,10 +376,9 @@ def test_tilted_tile_too_large_raises():
         CascadeEngine(big, (320, 320), 1.1, device="cpu")
     eng = CascadeEngine(casc, (64, 48), 1.1, device="cpu")
     smem = 4 * (3 * 49 * 51 + 46 * TREE_WORDS + 6)   # tables, 46 trees
-    assert DenseLevelPlan.make(eng.levels[0], eng._tables,
-                               tilted=True).smem_bytes == smem
+    assert DenseLevelPlan.make(eng.levels[0], eng._tables).smem_bytes == smem
     with pytest.raises(ValueError, match="tile"):
-        DenseLevelPlan.make(eng.levels[0], eng._tables, tilted=True,
+        DenseLevelPlan.make(eng.levels[0], eng._tables,
                             max_smem=smem - 1)
 
 
@@ -382,8 +391,6 @@ def test_tilted_wrapper_on_cpu_runs_plain_version(tilted_engines):
     assert dense_level_cuda.dense_level_tilted.launches == before
     for g, w in zip(got, dense_level_reference(x, plan)):
         assert torch.equal(g, w)
-    with pytest.raises(ValueError, match="tilted"):
-        dense_level_cuda.dense_level_strips(x, plan)
     with pytest.raises(ValueError):
         dense_level_cuda.dense_level_tilted(x[:, 1:], plan)
     with pytest.raises(TypeError):
@@ -393,8 +400,8 @@ def test_tilted_wrapper_on_cpu_runs_plain_version(tilted_engines):
 # ------------------------------------------------------------------ #3
 @pytest.fixture(scope="module")
 def strip_case():
-    """The face cascade's dense block on a tall 60x150 level (ystep 2) of
-    faces and noise."""
+    """The face cascade's dense block on a tall 60x150 level (ystep 2, 131
+    window-origin rows) of faces and noise."""
     casc = load_cascade_xml(
         os.path.join(OPENCV_DIR, "haarcascade_frontalface_alt.xml"))
     jeng = JaxEngine(casc, (60, 150), 1.25, use_pallas_dense=True)
@@ -408,48 +415,46 @@ def strip_case():
 
 
 def test_strip_plain_matches_pallas_strips(strip_case):
-    """Three strips (the last ragged) on both sides: the Pallas strip
-    kernel (forced through PALLAS_DENSE_MAX_ELEMS on the JAX engine
-    instance) and the port's plain version, whose strips the budget below
-    forces; alive exact and non-empty, vnf exact to the unfused formula and
-    within the XLA:CPU bound, and equal to the whole-level evaluation."""
+    """The Pallas strip kernel in three strips (the last ragged; forced
+    through PALLAS_DENSE_MAX_ELEMS on the JAX engine instance) against the
+    plain version of the pyramid kernel, whose bands carry such levels now:
+    alive exact and non-empty, vnf exact to the unfused formula and within
+    the XLA:CPU bound; the wrapper on a CPU tensor launches nothing."""
     jeng, peng, l, img = strip_case
     jeng.PALLAS_DENSE_MAX_ELEMS = 61 * 84     # strip_gy 64: 3 strips
     w_ii, w_iit, w_vnf, w_alive = build_dense_phase(
         jeng, l.sh, l.sw, l.ystep)(jnp.asarray(img), interpret=True)
     assert w_ii is None and w_iit is None
-    plan = DenseLevelPlan.make(l, peng._tables, tilted=False,
-                               max_smem=8 * 61 * 65)
-    assert (plan.strip_gy, plan.n_strips) == (44, 3)   # 131 = 44+44+43 rows
-    ii, iit, vnf, alive = dense_level_reference(torch.from_numpy(img), plan)
-    assert ii is None and iit is None
+    plan = PyramidDensePlan((l.sw, l.sh), [l], peng._tables)
+    assert len(plan.items) == 3
+    before = pyramid_dense_phase.launches
+    [(img_l, vnf, alive)] = pyramid_dense_phase(torch.from_numpy(img), plan)
+    assert pyramid_dense_phase.launches == before and img_l is None
     assert np.array_equal(alive.numpy(), np.asarray(w_alive).astype(np.uint8))
     assert alive.sum() > 0
     _check_vnf(img, l, peng._tables, vnf.numpy(), np.asarray(w_vnf))
 
-    x = torch.from_numpy(img)
-    whole = peng._tables.evaluate(integral_image(x), sq_integral_image(x),
-                                  None, l.ny, l.nx, l.ystep)
-    assert torch.equal(vnf, whole[0]) and torch.equal(alive, whole[1])
 
-
-@pytest.mark.parametrize("max_smem,n_strips", [(MAX_SMEM_BYTES, 1),
-                                               (8 * 61 * 43, 6),
-                                               (8 * 61 * 22, 66)])
-def test_strip_count_does_not_change_result(strip_case, max_smem, n_strips):
-    """Any strip geometry gives the whole-level result: one strip (the
-    non-tilted single block), six, and one strided window row per strip."""
+@pytest.mark.parametrize("target,n_bands", [(MAX_SMEM_BYTES, 3),
+                                            (8 * 61 * 43, 33),
+                                            (0, 66)])
+def test_strip_count_does_not_change_result(strip_case, target, n_bands):
+    """Any band cut of the pyramid kernel gives the whole-level result
+    (numpy mirror of the kernel's bands against the whole-level
+    evaluation): the default cut, bands of two grid rows, and one grid
+    row per band."""
     _, peng, l, img = strip_case
-    plan = DenseLevelPlan.make(l, peng._tables, tilted=False,
-                               max_smem=max_smem)
-    assert plan.n_strips == n_strips
+    plan = PyramidDensePlan((l.sw, l.sh), [l], peng._tables,
+                            band_target=target)
+    assert len(plan.items) == n_bands
+    [(_, vnf, alive)], n_win, _ = _band_mirror(plan, img,
+                                               plan._host["records"])
+    assert (n_win[0] == 1).all()
     x = torch.from_numpy(img)
-    before = dense_level_cuda.dense_level_strips.launches
-    vnf, alive = dense_level_cuda.dense_level_strips(x, plan)
-    assert dense_level_cuda.dense_level_strips.launches == before
     whole = peng._tables.evaluate(integral_image(x), sq_integral_image(x),
                                   None, l.ny, l.nx, l.ystep)
-    assert torch.equal(vnf, whole[0]) and torch.equal(alive, whole[1])
+    assert np.array_equal(vnf, whole[0].numpy())
+    assert np.array_equal(alive, whole[1].numpy())
 
 
 # ------------------------------------------------------ kernel mirror
@@ -487,54 +492,6 @@ def _tilted_table_mirror(ii):
         dsum[:, on] += ii[:, y, x - 1] - ii[:, y - 1, x - 1]
         iit[:, y, x] -= dsum[:, on]
     return iit
-
-
-def _eval_mirror(plan, ii, sq, iit, oy, ox):
-    """The window loop over the packed feature and weak-tree records
-    (float32 throughout) at origins (oy, ox) of the given uint32 tables."""
-    t, tabs = plan.tables.host, plan.tables
-    f32 = np.float32
-
-    def at(tab, dy, dx):
-        return tab[:, oy + dy, ox + dx]
-
-    def feature(fid):
-        fi, fw = t["feat_i"][fid], t["feat_w"][fid]
-        val = None
-        for r in range(fi[0]):
-            rx, ry, rw, rh = fi[1 + 4 * r:5 + 4 * r]
-            if fi[-1]:
-                v = (at(iit, ry, rx) - at(iit, ry + rw, rx + rw)
-                     - at(iit, ry + rh, rx - rh)
-                     + at(iit, ry + rw + rh, rx + rw - rh))
-            else:
-                v = (at(ii, ry, rx) - at(ii, ry, rx + rw)
-                     - at(ii, ry + rh, rx) + at(ii, ry + rh, rx + rw))
-            term = v.view(np.int32).astype(f32) * fw[r]
-            val = term if val is None else val + term
-        return val
-
-    nw, nh = tabs.norm_w, tabs.norm_h
-
-    def norm_rect(tab):
-        return (at(tab, 1, 1) - at(tab, 1, 1 + nw) - at(tab, 1 + nh, 1)
-                + at(tab, 1 + nh, 1 + nw))
-
-    vf = norm_rect(ii).view(np.int32).astype(f32)
-    nf = f32(tabs.norm_area) * norm_rect(sq).astype(f32) - vf * vf
-    alive = nf > f32(tabs.var_thr)
-    vnf = np.where(alive, f32(1) / np.sqrt(np.maximum(nf, f32(1e-20))),
-                   f32(1))
-    for st in range(tabs.n_dense):
-        ssum = np.zeros_like(vnf)
-        for k in np.nonzero(t["weak_i"][:, 3] == st)[0]:
-            (fa, fl, fr, _), wf = t["weak_i"][k], t["weak_f"][k]
-            v0, vl, vr = (feature(f) * vnf for f in (fa, fl, fr))
-            lv = np.where(vl < wf[1], wf[3], wf[4])
-            rv = np.where(vr < wf[2], wf[5], wf[6])
-            ssum = ssum + np.where(v0 < wf[0], lv, rv)
-        alive &= ssum >= t["stage_thr"][st]
-    return vnf, alive
 
 
 def _records_mirror(plan, ii, sq, iit, origin):
@@ -581,78 +538,69 @@ def _records_mirror(plan, ii, sq, iit, origin):
 
 
 def _level_kernel_mirror(plan, img):
-    """numpy mirror of csrc/dense_level.cu. Strips: per (strip, frame)
-    block, strip-local tables and the window loop. Tilted: the level's
-    tables, the tilted table along the diagonals, then per (tile, frame)
-    block the tile's window of the three tables staged at the plan's row
-    length, and the window loop over the plan's tree records there."""
+    """numpy mirror of csrc/dense_level.cu: the level's tables, the tilted
+    table along the diagonals, then per (tile, frame) block the tile's
+    window of the three tables staged at the plan's row length, and the
+    window loop over the plan's tree records there."""
     l, h0, w0 = plan.level, plan.tables.window_h, plan.tables.window_w
     B, step = img.shape[0], l.ystep
     vnf_out = np.zeros((B, l.ny, l.nx), np.float32)
     alive_out = np.zeros((B, l.ny, l.nx), np.uint8)
-    if plan.tilted:
-        ii, sq = _tables_mirror(img)
-        iit = _tilted_table_mirror(ii)
-        for iy0, n_rows, ix0, n_cols in plan.tiles():
-            r0, c0 = iy0 * step, ix0 * step
-            rows = slice(r0, r0 + (n_rows - 1) * step + h0 + 1)
-            cols = slice(c0, c0 + (n_cols - 1) * step + w0 + 1)
-            staged = []
-            for t in (ii, sq, iit):
-                s = np.zeros((B, plan.tile_rows, plan.pitch), np.uint32)
-                part = t[:, rows, cols]
-                s[:, :part.shape[1], :part.shape[2]] = part
-                staged.append(s.reshape(B, -1))
-            vnf, alive = _records_mirror(
-                plan, *staged, (np.arange(n_rows) * step)[:, None] * plan.pitch
-                + (np.arange(n_cols) * step)[None, :])
-            vnf_out[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = vnf
-            alive_out[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = alive
-        return ii.view(np.int32), iit.view(np.int32), vnf_out, alive_out
-    for s in range(plan.n_strips):
-        row0 = s * plan.strip_gy
-        rows = min(plan.strip_gy + h0 - 1, l.sh - row0)
-        ii, sq = _tables_mirror(img[:, row0:row0 + rows])
-        iy0 = row0 // step
-        iy1 = min(l.ny, (row0 + plan.strip_gy) // step)
-        vnf, alive = _eval_mirror(
-            plan, ii, sq, None, (np.arange(iy0, iy1) * step - row0)[:, None],
-            (np.arange(l.nx) * step)[None, :])
-        vnf_out[:, iy0:iy1] = vnf
-        alive_out[:, iy0:iy1] = alive
-    return None, None, vnf_out, alive_out
+    ii, sq = _tables_mirror(img)
+    iit = _tilted_table_mirror(ii)
+    for iy0, n_rows, ix0, n_cols in plan.tiles():
+        r0, c0 = iy0 * step, ix0 * step
+        rows = slice(r0, r0 + (n_rows - 1) * step + h0 + 1)
+        cols = slice(c0, c0 + (n_cols - 1) * step + w0 + 1)
+        staged = []
+        for t in (ii, sq, iit):
+            s = np.zeros((B, plan.tile_rows, plan.pitch), np.uint32)
+            part = t[:, rows, cols]
+            s[:, :part.shape[1], :part.shape[2]] = part
+            staged.append(s.reshape(B, -1))
+        vnf, alive = _records_mirror(
+            plan, *staged, (np.arange(n_rows) * step)[:, None] * plan.pitch
+            + (np.arange(n_cols) * step)[None, :])
+        vnf_out[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = vnf
+        alive_out[:, iy0:iy0 + n_rows, ix0:ix0 + n_cols] = alive
+    return ii.view(np.int32), iit.view(np.int32), vnf_out, alive_out
 
 
 def test_level_kernel_tables_reproduce_plain_version(tilted_engines,
                                                      strip_case):
-    """Both forms of the level kernels, mirrored in numpy from the packed
-    records: the tilted form on the tilted cascade's largest level in one
-    tile and in 3x3 ragged tiles, the strip form with three strips."""
+    """The level kernels, mirrored in numpy from the packed records: the
+    tilted form on the tilted cascade's largest level in one tile and in
+    3x3 ragged tiles; a level the row-strip kernel took, in the pyramid
+    kernel's bands of one grid row."""
     _, peng_t = tilted_engines
     _, peng_s, l, img = strip_case
     l_t = peng_t.levels[0]
     x_t = _u8(21, (2, l_t.sh, l_t.sw))
-    cases = [(peng_t._level_plans[0], x_t),
-             (DenseLevelPlan.make(l_t, peng_t._tables, tilted=True,
-                                  tile=(4, 6)), x_t),
-             (DenseLevelPlan.make(l, peng_s._tables, tilted=False,
-                                  max_smem=8 * 61 * 65), img)]
-    for plan, x in cases:
+    for plan, x in [(peng_t._level_plans[0], x_t),
+                    (DenseLevelPlan.make(l_t, peng_t._tables, tile=(4, 6)),
+                     x_t)]:
         got = _level_kernel_mirror(plan, x)
         want = dense_level_reference(torch.from_numpy(x), plan)
         for g, w in zip(got, want):
-            assert (g is None) == (w is None)
-            if g is not None:
-                assert np.array_equal(g, w.numpy())
+            assert np.array_equal(g, w.numpy())
         assert want[3].sum() > 0
+    plan = PyramidDensePlan((l.sw, l.sh), [l], peng_s._tables,
+                            band_target=0)
+    [(_, vnf, alive)], _, _ = _band_mirror(plan, img, plan._host["records"])
+    [(_, w_vnf, w_alive)] = dense_cuda.pyramid_dense_phase_reference(
+        torch.from_numpy(img), plan)
+    assert np.array_equal(vnf, w_vnf.numpy())
+    assert np.array_equal(alive, w_alive.numpy()) and alive.sum() > 0
 
 
 # ------------------------------------------------------------- routing
 def test_routing_at_720p():
     """The route of every level of the part chain's engines at 1280x720
     (host geometry only): the face pass at 160x90 all in the pyramid
-    kernel; the nose at 320x180: the four levels over the pyramid kernel's
-    shared memory in row strips, 20 in one pyramid launch; the mouth and
+    kernel; the nose at 320x180: all 24 levels in one pyramid launch, the
+    four whose whole tables exceed shared memory (the row-strip kernel's
+    before) in bands of 4-10 grid rows, at most 77 KB a block (three an
+    SM); the mouth and
     eyes: every level in the tilted kernels, 320x180 included, with 16x16
     tiles of windows (49x67 table entries of each table for the smile's
     36x18 window, 51x51 for the eyes' 20x20) and the tree records in shared
@@ -664,14 +612,18 @@ def test_routing_at_720p():
     face = eng("haarcascade_frontalface_alt.xml", (160, 90), 1.25, (3, 3))
     assert face.routes == ["pyramid"] * 7
     nose = eng("vca_nose_synthetic.xml", (320, 180), 1.1, (1, 1))
-    assert nose.routes == ["strips"] * 4 + ["pyramid"] * 20
+    assert nose.routes == ["pyramid"] * 24 and not nose._level_plans
     assert [(l.sw, l.sh) for l in nose.levels[3:5]] == [(240, 135),
                                                         (219, 123)]
-    assert [(p.strip_gy, p.n_strips) for p in nose._level_plans.values()] \
-        == [(70, 3), (78, 2), (88, 2), (100, 2)]
-    assert all(p.smem_bytes <= MAX_SMEM_BYTES
-               for p in nose._level_plans.values())
-    assert nose._plan.smem_bytes == 8 * 220 * 124 <= MAX_SMEM_BYTES
+    plan = nose._plan
+    assert plan.levels == tuple(nose.levels) and plan.n_wide == 4
+    bands = [plan.items[plan.items[:, 0] == li, 2].tolist()
+             for li in range(4)]
+    assert bands == [[5] * 13 + [4] * 4, [6] * 8 + [5] * 5,
+                     [8] * 2 + [7] * 7, [10] * 4 + [9] * 2]
+    assert plan.band_smem_bytes == 8 * 39 * 241 + 4 * (
+        len(nose._tables.host["weak_i"]) * TREE_WORDS + nose._tables.n_dense)
+    assert plan.band_smem_bytes <= dense_cuda.BAND_SMEM_TARGET
     for name, min_size, n_levels, (rows, pitch), tiles in [
             ("haarcascade_smile.xml", (1, 1), 23, (49, 67), (6, 9)),
             ("haarcascade_righteye_2splits.xml", (20, 20), 24, (51, 51),
@@ -695,10 +647,50 @@ def test_routing_at_720p():
 
 
 def test_level_too_wide_raises():
-    """A non-tilted level too wide for even a one-row strip has no route:
-    construction raises and names what is missing."""
+    """A non-tilted level too wide for even a band of one grid row has no
+    route: construction raises and names what is missing."""
     casc = port_load(os.path.join(PKG_ASSETS_DIR,
                                   "haarcascade_frontalface_alt.xml"))
     with pytest.raises(NotImplementedError, match="no dense kernel"):
         CascadeEngine(casc, (16000, 40), 1.25, device="cpu")
 
+
+def _old_strip_limit(l, win_h):
+    """Whether the row-strip kernel the pyramid kernel's bands replace
+    took level `l`: a strip of one window row's origins (strip_gy = ystep)
+    and its win_h - 1 halo rows, both tables in shared memory."""
+    max_rows = MAX_SMEM_BYTES // (8 * (l.sw + 1)) - 1
+    return (max_rows - win_h + 1) // l.ystep * l.ystep >= l.ystep
+
+
+@pytest.mark.parametrize("win,widest,old_widest", [((20, 20), 1382, 1319),
+                                                   ((24, 24), 1161, 1116)])
+def test_route_boundary(win, widest, old_widest):
+    """The widest non-tilted level the pyramid kernel takes (a band of one
+    grid row, ystep 2): 1382 px for a 20-px window, 1161 px for a 24-px
+    one; every level the row-strip kernel took (up to 1319 and 1116 px) is
+    taken. At the boundary a band's tables leave no room for the tree
+    records, which the launch's blocks then read through L1; one column
+    more and the engine raises."""
+    def level(sw):
+        return _level(sw, 60, 2, win)
+
+    assert pyramid_fits(level(widest), win[1])
+    assert not pyramid_fits(level(widest + 1), win[1])
+    assert _old_strip_limit(level(old_widest), win[1])
+    assert not _old_strip_limit(level(old_widest + 1), win[1])
+    assert all(pyramid_fits(level(sw), win[1])
+               for sw in range(win[0], old_widest + 1))
+    casc = port_load(os.path.join(PKG_ASSETS_DIR,
+                                  "haarcascade_frontalface_alt.xml"))
+    casc = dataclasses.replace(casc, window_w=win[0], window_h=win[1])
+    eng = CascadeEngine(casc, (widest, 60), 1.25, device="cpu")
+    assert eng.routes[0] == "pyramid"
+    plan = eng._plan
+    first = plan.items[plan.items[:, 0] == 0]
+    assert (first[:, 2] == 1).all()
+    assert not plan.staged                         # records through L1
+    assert plan.band_smem_bytes == 8 * (win[1] + 1) * (widest + 1)
+    plan.check_fits()
+    with pytest.raises(NotImplementedError, match="no dense kernel"):
+        CascadeEngine(casc, (widest + 1, 60), 1.25, device="cpu")

@@ -11,6 +11,12 @@ Philox4x32-10 rounding is held to its definition (each value is the floor
 or the floor + 1 of ``x / scale``, a seed reproduces, another seed differs,
 the mean error is zero within 5 sigma) and its generator to the Random123
 known-answer vectors and a numpy uint32 mirror.
+
+The CUDA kernel's work split and its epoch-tagged maximum slot are
+mirrored in numpy: the groups a thread keeps in registers and the rest it
+streams, then re-reads in reverse, cover every group of 4 elements once
+per pass at the grid sizes the wrapper picks; the slot orders a call's
+values above every earlier call's and is cleared when the epoch wraps.
 """
 
 from __future__ import annotations
@@ -86,6 +92,85 @@ def test_wrappers_run_the_plain_version_on_cpu():
         quant_cuda.quantize_int8(x.double())
     with pytest.raises(ValueError):
         quant_cuda.quantize_int8(torch.zeros(0))
+
+
+# ------------------------------------------------------- kernel mirrors
+# the seven layer inputs of a B=64 720p int8 forward (320x240 canvas)
+LAYER_SIZES = (4_915_200, 19_660_800, 9_830_400, 4_915_200, 2_457_600,
+               2_457_600, 4_915_200)
+
+
+def _partition_mirror(n: int, blocks: int):
+    """numpy mirror of quant_kernel's loops for n elements on `blocks`
+    blocks → per group of 4 elements: times read into registers, times
+    streamed in pass 1, times quantized in pass 2, and whether each
+    thread's pass 2 runs its pass 1 backwards."""
+    K, T = quant_cuda.REG_GROUPS, blocks * quant_cuda.THREADS
+    G = -(-n // 4)
+    t = np.arange(T, dtype=np.int64)
+    reg, one, two = (np.zeros(G, np.int64) for _ in range(3))
+    for k in range(K):                      # registers
+        g = k * T + t
+        np.add.at(reg, g[g < G], 1)
+    first = K * T + t
+    last = first - T
+    step1, step2 = np.full(G, -1, np.int64), np.full(G, -1, np.int64)
+    g, i = first.copy(), 0
+    while (g < G).any():                    # pass 1, forward
+        on = g < G
+        np.add.at(one, g[on], 1)
+        step1[g[on]] = i
+        last[on] = g[on]
+        g, i = g + T, i + 1
+    n_steps = np.where(last >= first, (last - first) // T + 1, 0)
+    g, j = last.copy(), 0
+    while (g >= first).any():               # pass 2, backward
+        on = g >= first
+        np.add.at(two, g[on], 1)
+        step2[g[on]] = n_steps[on] - 1 - j
+        g, j = g - T, j + 1
+    return reg, one, two, bool(np.array_equal(step1, step2))
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1025, 2**24 + 3, *LAYER_SIZES])
+def test_kernel_partition_covers_every_group_once(n):
+    """At the wrapper's grid for 528, 660 and 1056 resident blocks (4, 5
+    and 8 blocks on 132 SMs) and at 1 and 7 blocks: the groups kept in
+    registers and the streamed ones cover every group once in the maximum
+    pass and once in the quantizing pass, which walks each thread's
+    streamed groups backwards; only inputs past the registers' reach are
+    streamed."""
+    G = -(-n // 4)
+    grids = {quant_cuda.launch_blocks(n, most) for most in (528, 660, 1056)}
+    for blocks in sorted(grids | {1, 7}):
+        reg, one, two, reverse = _partition_mirror(n, blocks)
+        assert ((reg + one) == 1).all() and ((reg + two) == 1).all()
+        assert reverse
+        held = quant_cuda.REG_GROUPS * quant_cuda.THREADS * blocks
+        assert one.sum() == max(0, G - held)
+    assert quant_cuda.launch_blocks(n, 660) == min(
+        660, -(-G // (quant_cuda.REG_GROUPS * quant_cuda.THREADS)))
+
+
+def test_max_slot_epochs_order_and_wrap():
+    """The slot word (epoch << 32) | bits: a call's smallest value beats an
+    earlier call's largest, and within a call the largest |x| wins (a NaN
+    above infinity); at the 32-bit epoch's end the slot is zeroed and the
+    epochs start again at 1."""
+    slot = quant_cuda.MaxSlot(torch.device("cpu"))
+
+    def word(epoch, v):
+        return (epoch << 32) | int(np.float32(abs(v)).view(np.uint32))
+
+    assert word(2, 0.0) > word(1, np.inf)
+    assert word(1, np.nan) > word(1, np.inf) > word(1, 3.0) > word(1, 1e-9)
+    assert [slot.take()[1] for _ in range(3)] == [1, 2, 3]
+    slot.slot.fill_(word(3, 5.0) - (1 << 63))     # as the int64 holds it
+    slot.epoch = quant_cuda.EPOCHS - 2
+    ptr, epoch = slot.take()
+    assert epoch == quant_cuda.EPOCHS - 1 and slot.slot.item() != 0
+    assert ptr == slot.slot.data_ptr()
+    assert slot.take()[1] == 1 and slot.slot.item() == 0
 
 
 # ---------------------------------------------------------------- Philox

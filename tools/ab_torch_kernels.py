@@ -1,31 +1,40 @@
-"""Time two versions of the port's pyramid, integral and tilted-evaluation
-kernels against each other on one CUDA GPU, in turns.
+"""Time two versions of the port's kernels against each other on one CUDA
+GPU, in turns.
 
     python3 tools/ab_torch_kernels.py --old-csrc DIR [--out FILE]
 
-DIR holds an earlier version's ``pyramid_dense.cu``, ``integral_tables.cu``
-and ``dense_level.cu`` with the headers they include, in the C interfaces
-they had before the band layout (``pyramid_dense_launch`` with one block
-per (level, frame), ``integral_tables_launch`` with one block per frame,
-``tilted_eval_launch`` as now). The tool builds them with the port's nvcc
-flags into ``build/ab_kernels/``, checks that old and new give the same
-outputs, and times, per B=64 batch of synthetic 720p frames:
+DIR holds an earlier version's ``pyramid_dense.cu``, ``dense_level.cu``,
+``dense_eval.cuh`` and ``quant_int8.cu``, in the C interfaces they had
+before the pyramid kernel took the row-strip levels (``pyramid_dense_launch``
+without the `staged` argument, whose last band of a level tabulates to the
+level's end; ``dense_strips_launch``, the row-strip kernel;
+``tilted_eval_launch`` as now; ``quant_int8_launch`` with a memset scratch
+word and two launches).
+The tool builds them with the port's nvcc flags into ``build/ab_kernels/``,
+checks that old and new give the same outputs, and times, per B=64 batch
+of synthetic 720p frames:
 
-* the pyramid kernel on the face path's 7 levels (160x90) and on the
-  nose's 20-level launch (320x180);
-* the integral kernel over the right eye's 24 tilted levels, its 6
-  largest, and the mouth's 23;
-* the tilted evaluation kernel over the right eye's 24 levels, and the
-  whole tilted dense phase (integral kernel, tilted-table kernel,
-  evaluation) over its 18 smaller, all 24 and 6 largest levels;
+* the pyramid kernel on the face path's 7 levels (160x90);
+* the nose's dense phase: old, the 20-level pyramid launch, the plain
+  resize of the four wide levels and the row-strip kernel on them; new,
+  the one 24-level launch;
+* the nose's 24-level launch in its bands (within a third of an SM's
+  shared memory) against bands of a window's height and against bands
+  within a quarter (all the new kernel);
+* the tilted evaluation kernel over the right eye's 24 levels;
+* the int8 quantizer over the seven layer inputs of an int8 forward, and
+  the stochastic one on the conv1 input; and the new quantizer against
+  its variants in ``QUANT_VARIANTS`` (two launches with the same slot and
+  a reverse second pass; 1 to 16 groups of 4 a thread in registers),
+  built from the port's ``csrc/quant_int8.cu``, which they include;
 
 each as old, new, new, old with CUDA events around 50 calls (mean ms per
 call sequence, host issue included) and the host's time to issue them,
-and each version's kernel time alone
-from ``torch.profiler`` (device µs summed over the kernels of one call
-sequence). Every line carries the card's ``nvidia-smi`` name and power
-limit; FILE (default ``build/ab_kernels/ab_kernels.json``) gets the
-numbers.
+and each version's kernel time alone from ``torch.profiler`` (device µs
+summed over the kernels of one call sequence; for the quantizers also per
+layer input). Every line carries the
+card's ``nvidia-smi`` name and power limit; FILE (default
+``build/ab_kernels/ab_kernels.json``) gets the numbers.
 """
 
 from __future__ import annotations
@@ -46,9 +55,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from nubomedia_vca_tpu_torch.models import (  # noqa: E402
-    EyeDetector, FaceDetector, MouthDetector, NoseDetector)
+    EyeDetector, FaceDetector, NoseDetector, QuantizedCnnFaceDetector)
 from nubomedia_vca_tpu_torch.ops.cuda import (  # noqa: E402
-    _build, dense_cuda, dense_level_cuda, integral_cuda)
+    _build, dense_cuda, dense_level_cuda, integral_cuda, quant_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
@@ -56,16 +65,116 @@ from nubomedia_vca_tpu_torch.utils.synth import face_clip  # noqa: E402
 
 B, FRAME, N_CALLS = 64, (1280, 720), 50
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-OLD_LEVEL_FIELDS = 10     # the level record before the band layout
+U, LL = ctypes.c_uint, ctypes.c_longlong
+VARIANTS = (0, 1, 2, 4, 8, 16)   # QUANT_VARIANTS: two launches; K groups
+CASCADE = [P, P, P, P, I, P, I, I, I, F, F]   # feat_i .. var_thr
+# Variants of the int8 quantizer for the A/B cases, sharing its arithmetic
+# (load_group, publish_max, scale_of, store_group): variant 0, two launches
+# (absmax_slot_kernel into the same epoch-tagged slot, no memset, then
+# quantize_reverse_kernel, each thread's groups in the reverse order of the
+# first pass); variant K > 0, the port's quant_kernel<K> with K groups of 4
+# elements a thread in registers across the grid barrier.
+QUANT_VARIANTS = """\
+#include "{quant_src}"
+
+namespace {{
+
+__global__ void __launch_bounds__(kThreads)
+absmax_slot_kernel(const float* __restrict__ x, long long n, int vec,
+                   unsigned long long* slot, unsigned epoch) {{
+  const long long T = static_cast<long long>(gridDim.x) * kThreads;
+  long long last;
+  publish_max(stream_max(x, n, vec,
+                         static_cast<long long>(blockIdx.x) * kThreads +
+                             threadIdx.x,
+                         (n + 3) / 4, T, &last),
+              slot, epoch);
+}}
+
+__global__ void __launch_bounds__(kThreads)
+quantize_reverse_kernel(const float* __restrict__ x, long long n, int vec,
+                        const unsigned long long* slot, int stochastic,
+                        unsigned seed, int8_t* __restrict__ q,
+                        float* __restrict__ scale_out) {{
+  const long long T = static_cast<long long>(gridDim.x) * kThreads;
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const long long n_groups = (n + 3) / 4;
+  const float scale = scale_of(static_cast<unsigned>(__ldcg(slot)));
+  if (t == 0) *scale_out = scale;
+  if (t >= n_groups) return;
+  stream_quantize(x, q, n, vec, t, t + (n_groups - 1 - t) / T * T, T, scale,
+                  stochastic, seed);
+}}
+
+const void* fused(int k) {{
+  switch (k) {{
+    case 1: return reinterpret_cast<const void*>(quant_kernel<1>);
+    case 2: return reinterpret_cast<const void*>(quant_kernel<2>);
+    case 4: return reinterpret_cast<const void*>(quant_kernel<4>);
+    case 8: return reinterpret_cast<const void*>(quant_kernel<8>);
+    case 16: return reinterpret_cast<const void*>(quant_kernel<16>);
+    default: return nullptr;
+  }}
+}}
+
+}}  // namespace
+
+// Resident blocks of a variant on `device` (its SMs times the blocks an SM
+// holds). Returns the CUDA error code (0 on success; 1 for no such variant).
+extern "C" int quant_ab_max_blocks(int variant, int device, int* blocks) {{
+  const void* kernel = variant == 0
+                           ? reinterpret_cast<const void*>(absmax_slot_kernel)
+                           : fused(variant);
+  if (kernel == nullptr) return 1;
+  int n_sm = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = n_sm * per_sm;
+  return 0;
+}}
+
+// One call of a variant, arguments as quant_int8_launch's.
+extern "C" int quant_ab_launch(int variant, int device, void* stream,
+                               const float* x, long long n, int stochastic,
+                               unsigned seed, int blocks,
+                               unsigned long long* slot, unsigned epoch,
+                               int8_t* q, float* scale_out) {{
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(q) % 4 == 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 0) {{
+    absmax_slot_kernel<<<blocks, kThreads, 0, s>>>(x, n, vec, slot, epoch);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    quantize_reverse_kernel<<<blocks, kThreads, 0, s>>>(
+        x, n, vec, slot, stochastic, seed, q, scale_out);
+    return static_cast<int>(cudaGetLastError());
+  }}
+  const void* kernel = fused(variant);
+  if (kernel == nullptr) return 1;
+  void* args[] = {{&x, &n, &vec, &slot, &epoch, &stochastic, &seed, &q,
+                  &scale_out}};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      kernel, dim3(blocks), dim3(kThreads), args, 0, s));
+}}
+"""
 
 
-def build_old(src_dir: pathlib.Path, name: str) -> ctypes.CDLL:
-    out = ROOT / "build" / "ab_kernels" / f"lib{name}_old.so"
+def build(src: pathlib.Path, out_name: str) -> ctypes.CDLL:
+    out = ROOT / "build" / "ab_kernels" / f"lib{out_name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-           str(src_dir / f"{name}.cu")]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)]
     proc = subprocess.run(cmd, check=True, capture_output=True, text=True)
-    print_ptxas(f"old {name}", proc.stdout + proc.stderr)
+    print_ptxas(out_name, proc.stdout + proc.stderr)
     return ctypes.CDLL(str(out))
 
 
@@ -80,58 +189,89 @@ def stream_args(dev):
         dev).cuda_stream
 
 
+def old_strip_plan(l, win_h):
+    """The row-strip kernel's strips of a level: (strip_gy, n_strips, rows
+    a strip tabulates)."""
+    max_rows = dense_cuda.MAX_SMEM_BYTES // (8 * (l.sw + 1)) - 1
+    gy = l.sh - win_h + 1
+    strip_gy = (max_rows - win_h + 1) // l.ystep * l.ystep
+    strip_gy = min(strip_gy, -(-gy // l.ystep) * l.ystep)
+    return strip_gy, -(-gy // strip_gy), min(strip_gy + win_h - 1, l.sh)
+
+
 class Old:
     """The earlier version's wrappers: its launchers, bound with their C
     interfaces, behind the same checks, allocations and output views as
     the current wrappers, so that both sides pay the same host work."""
 
     def __init__(self, src_dir: pathlib.Path):
-        self.pyr = build_old(src_dir, "pyramid_dense")
+        self.pyr = build(src_dir / "pyramid_dense.cu", "pyramid_dense_old")
         self.pyr.pyramid_dense_launch.argtypes = [
-            I, P, P, I, I, I, P, I, P, *dense_cuda.CASCADE_ARGTYPES, I, P, P,
-            P]
-        self.integ = build_old(src_dir, "integral_tables")
-        self.integ.integral_tables_launch.argtypes = [I, P, P, I, I, I, P, P]
-        self.level = build_old(src_dir, "dense_level")
+            I, P, P, I, I, I, P, P, I, P, P, I, P, I, I, I, F, F, I, P, P, P]
+        self.level = build(src_dir / "dense_level.cu", "dense_level_old")
         self.level.tilted_eval_launch.argtypes = \
             dense_level_cuda._library().tilted_eval_launch.argtypes
-        self._levels: dict = {}
+        self.level.dense_strips_launch.argtypes = [
+            I, P, P, I, I, I, I, I, I, I, I, I, *CASCADE, I, P, P]
+        self.quant = build(src_dir / "quant_int8.cu", "quant_int8_old")
+        self.quant.quant_int8_launch.argtypes = [I, P, P, LL, I, U, P, P, P]
+        self._tabs: dict = {}
+
+    def _plan_tables(self, plan, dev):
+        """The plan's items as the old kernel reads them, and its shared
+        memory."""
+        key = (id(plan), dev)
+        if key not in self._tabs:
+            items = plan.items.copy()
+            n_rec = len(plan.tables.host["weak_i"]) * dense_cuda.TREE_WORDS
+            for it in items:
+                l = plan.levels[it[0]]
+                if it[1] + it[2] == l.ny:          # the last band: to the end
+                    it[4] = l.sh - it[3]
+            smem = 4 * (n_rec + plan.tables.n_dense) + max(
+                8 * (it[4] + 1) * (plan.levels[it[0]].sw + 1) for it in items)
+            assert smem <= dense_cuda.MAX_SMEM_BYTES
+            self._tabs[key] = (torch.from_numpy(items).to(dev), smem)
+        return self._tabs[key]
 
     def pyramid(self, work, plan):
         dense_cuda._check_work(work, plan)
-        plan.check_fits()
         dev = work.device
-        key = (id(plan), dev)
-        if key not in self._levels:
-            self._levels[key] = torch.from_numpy(np.ascontiguousarray(
-                plan._host["levels"][:, :OLD_LEVEL_FIELDS])).to(dev)
-        t = plan.device_tables(dev)
+        items, smem = self._plan_tables(plan, dev)
+        t, tabs = plan.device_tables(dev), plan.tables
         img = torch.empty(max(B * plan.img_unit, 1), dtype=torch.uint8,
                           device=dev)
         vnf = torch.empty(B * plan.map_unit, dtype=torch.float32, device=dev)
         alive = torch.empty(B * plan.map_unit, dtype=torch.uint8, device=dev)
         rc = self.pyr.pyramid_dense_launch(
             *stream_args(dev), work.data_ptr(), B, plan.image_h, plan.image_w,
-            self._levels[key].data_ptr(), len(plan.levels),
-            t["rtab"].data_ptr(), *plan.tables.launch_args(dev),
-            plan.smem_bytes, img.data_ptr(), vnf.data_ptr(), alive.data_ptr())
+            t["levels"].data_ptr(), items.data_ptr(), len(plan.items),
+            t["rtab"].data_ptr(), t["records"].data_ptr(),
+            len(tabs.host["weak_i"]),
+            tabs.device_tables(dev)["stage_thr"].data_ptr(), tabs.n_dense,
+            tabs.norm_w, tabs.norm_h, tabs.norm_area, tabs.var_thr, smem,
+            img.data_ptr(), vnf.data_ptr(), alive.data_ptr())
         assert rc == 0, rc
         return dense_cuda.level_outputs(plan, B, img, vnf, alive)
 
-    def integral(self, img):
-        if img.dtype != torch.uint8 or img.ndim != 3:
-            raise TypeError("image must be [B,H,W] uint8")
-        if not img.is_contiguous():
-            raise ValueError("image must be contiguous")
-        Bi, H, W = img.shape
-        ii = torch.empty((Bi, H + 1, W + 1), dtype=torch.int32,
-                         device=img.device)
-        sq = torch.empty_like(ii)
-        rc = self.integ.integral_tables_launch(
-            *stream_args(img.device), img.data_ptr(), Bi, H, W, ii.data_ptr(),
-            sq.data_ptr())
+    def strips(self, img, l, tables):
+        """The row-strip kernel on level image img [B, sh, sw] → (vnf,
+        alive)."""
+        dev = img.device
+        strip_gy, n_strips, rows = old_strip_plan(l, tables.window_h)
+        t = tables.device_tables(dev)
+        vnf = torch.empty((B, l.ny, l.nx), dtype=torch.float32, device=dev)
+        alive = torch.empty((B, l.ny, l.nx), dtype=torch.uint8, device=dev)
+        rc = self.level.dense_strips_launch(
+            *stream_args(dev), img.data_ptr(), B, l.sh, l.sw, l.ystep, l.nx,
+            l.ny, strip_gy, n_strips, tables.window_h, t["feat_i"].data_ptr(),
+            t["feat_w"].data_ptr(), t["weak_i"].data_ptr(),
+            t["weak_f"].data_ptr(), t["weak_i"].shape[0],
+            t["stage_thr"].data_ptr(), tables.n_dense, tables.norm_w,
+            tables.norm_h, tables.norm_area, tables.var_thr,
+            8 * (rows + 1) * (l.sw + 1), vnf.data_ptr(), alive.data_ptr())
         assert rc == 0, rc
-        return ii, sq
+        return vnf, alive
 
     def tilted_eval(self, ii, sq, iit, plan):
         lib = dense_level_cuda._library
@@ -141,16 +281,56 @@ class Old:
         finally:
             dense_level_cuda._library = lib
 
-    def tilted_phase(self, img, plan):
-        """dense_level_tilted as it was: the old integral and evaluation
-        kernels around the (unchanged) tilted-table kernel."""
-        ii, sq = self.integral(img)
-        iit = dense_level_cuda.tilted_table(ii)
-        return (ii, iit, *self.tilted_eval(ii, sq, iit, plan))
+    def quantize(self, x, stochastic=False, seed=0):
+        quant_cuda._check(x)
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        scale = torch.empty((), dtype=torch.float32, device=x.device)
+        scratch = torch.empty(1, dtype=torch.int32, device=x.device)
+        rc = self.quant.quant_int8_launch(
+            *stream_args(x.device), x.data_ptr(), x.numel(), int(stochastic),
+            seed, scratch.data_ptr(), q.data_ptr(), scale.data_ptr())
+        assert rc == 0, rc
+        return q, scale
 
 
-def new_pyramid(work, plan):
-    return dense_cuda.pyramid_dense_phase(work, plan)
+class Variants:
+    """The quantizer variants of QUANT_VARIANTS behind the current
+    wrapper's host work (cached grid, the stream's slot)."""
+
+    def __init__(self):
+        src = ROOT / "build" / "ab_kernels" / "quant_variants.cu"
+        src.parent.mkdir(parents=True, exist_ok=True)
+        src.write_text(QUANT_VARIANTS.format(
+            quant_src=_build.SRC_DIR / "quant_int8.cu"))
+        self.lib = build(src, "quant_variants")
+        self.lib.quant_ab_launch.argtypes = [I, I, P, P, LL, I, U, I, P, U,
+                                             P, P]
+        self.lib.quant_ab_max_blocks.argtypes = [I, I,
+                                                 ctypes.POINTER(ctypes.c_int)]
+        self._most: dict = {}
+
+    def most(self, variant, dev):
+        if variant not in self._most:
+            out = ctypes.c_int(0)
+            assert self.lib.quant_ab_max_blocks(variant, dev,
+                                                ctypes.byref(out)) == 0
+            self._most[variant] = out.value
+        return self._most[variant]
+
+    def quantize(self, x, variant, stochastic=False, seed=0):
+        quant_cuda._check(x)
+        dev, stream = stream_args(x.device)
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        scale = torch.empty((), dtype=torch.float32, device=x.device)
+        slot, epoch = quant_cuda._slot(x.device, stream).take()
+        groups = -(-x.numel() // 4)
+        per = quant_cuda.THREADS * max(variant, 1)
+        blocks = max(1, min(self.most(variant, dev), -(-groups // per)))
+        rc = self.lib.quant_ab_launch(
+            variant, dev, stream, x.data_ptr(), x.numel(), int(stochastic),
+            seed, blocks, slot, epoch, q.data_ptr(), scale.data_ptr())
+        assert rc == 0, rc
+        return q, scale
 
 
 def cuda_ms(fn, n=N_CALLS):
@@ -188,9 +368,10 @@ def kernel_us(fn, names):
     return total / 5
 
 
-def per_call_us(fn, name, n_calls):
-    """Device µs of each of the n_calls launches of kernel `name` that one
-    call of fn makes (torch.profiler; mean over 5 calls)."""
+def per_launch_us(fn, names):
+    """Device µs of each launch of the kernels whose names contain one of
+    `names` in one call of fn, in launch order (torch.profiler; mean over
+    5 calls)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -198,12 +379,13 @@ def per_call_us(fn, name, n_calls):
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-    times = [float(e.time_range.elapsed_us())
-             for e in prof.events()
-             if name in e.name and e.device_type.name == "CUDA"]
-    if len(times) != 5 * n_calls:
-        return []
-    return [float(v) for v in np.asarray(times).reshape(5, n_calls).mean(0)]
+    evs = sorted((e.time_range.start, float(e.time_range.elapsed_us()))
+                 for e in prof.events()
+                 if e.device_type.name == "CUDA"
+                 and any(n in e.name for n in names))
+    us = np.asarray([d for _, d in evs])
+    return [float(v) for v in us.reshape(5, -1).mean(0)] if len(us) % 5 == 0 \
+        else []
 
 
 def ab(gpu, cases):
@@ -242,6 +424,120 @@ def same(a, b, what):
         raise AssertionError(f"{what}: old and new differ")
 
 
+def dense_cases(old, face, nose, eye, face_work, part):
+    """The dense kernels' cases, each checked old == new first."""
+    cases = []
+    pyr = ["pyramid_band_kernel"]
+    for li, (o, n) in enumerate(zip(old.pyramid(face_work, face._plan),
+                                    dense_cuda.pyramid_dense_phase(
+                                        face_work, face._plan))):
+        for a, b, name in zip(o, n, ("image", "vnf", "alive")):
+            if b is not None:
+                same(a, b, f"#1 face level {li} {name}")
+    cases.append(("#1 face path, 7 levels 160x90",
+                  lambda: old.pyramid(face_work, face._plan),
+                  lambda: dense_cuda.pyramid_dense_phase(face_work,
+                                                         face._plan),
+                  pyr, pyr))
+
+    wide, tabs = nose.levels[:4], nose._tables
+    plan20 = dense_cuda.PyramidDensePlan((320, 180), nose.levels[4:], tabs)
+    assert plan20.n_wide == 0 and nose._plan.n_wide == 4
+
+    def old_nose():
+        out = []
+        for l in wide:
+            img = (part if (l.sw, l.sh) == (320, 180)
+                   else resize_linear_exact(part, (l.sw, l.sh)))
+            out.append((img, *old.strips(img, l, tabs)))
+        return out + old.pyramid(part, plan20)
+
+    def new_nose():
+        return dense_cuda.pyramid_dense_phase(part, nose._plan)
+
+    for li, (o, n) in enumerate(zip(old_nose(), new_nose())):
+        for a, b, name in zip(o, n, ("image", "vnf", "alive")):
+            if b is not None:
+                same(a, b, f"nose level {li} {name}")
+    cases.append((
+        "#1 + #3 nose dense phase: old 20-level launch + 4 resizes + 4 "
+        f"row-strip launches, new one 24-level launch "
+        f"({len(nose._plan.items)} bands)",
+        old_nose, new_nose, [""], [""]))
+    for what, target in (
+            ("bands of a window's height", dense_cuda.MAX_SMEM_BYTES),
+            ("bands within a quarter of an SM's shared memory",
+             dense_cuda.SM_SMEM_BYTES // 4 - 1024)):
+        other = dense_cuda.PyramidDensePlan((320, 180), nose.levels, tabs,
+                                            band_target=target)
+        for a, b in zip(dense_cuda.pyramid_dense_phase(part, nose._plan),
+                        dense_cuda.pyramid_dense_phase(part, other)):
+            for x, y in zip(a, b):
+                if x is not None:
+                    same(x, y, f"nose, {what}")
+        cases.append((
+            f"#1 nose 24-level launch: old = {what} ({len(other.items)} "
+            f"bands, {other.band_smem_bytes} B a block); new = the port's "
+            f"bands ({len(nose._plan.items)} bands, "
+            f"{nose._plan.band_smem_bytes} B)",
+            lambda p=other: dense_cuda.pyramid_dense_phase(part, p),
+            new_nose, pyr, pyr))
+
+    plans = [eye._level_plans[li] for li in range(len(eye.levels))]
+    tables = []
+    for l in eye.levels:
+        ii, sq = integral_cuda.integral_tables(
+            resize_linear_exact(part, (l.sw, l.sh)))
+        tables.append((ii, sq, dense_level_cuda.tilted_table(ii)))
+    for t, p in zip(tables, plans):
+        for a, b in zip(old.tilted_eval(*t, p),
+                        dense_level_cuda._tilted_eval(*t, p)):
+            same(a, b, "#2 evaluation")
+    cases.append((
+        "#2 tiled evaluation, right eye, 24 levels",
+        lambda: [old.tilted_eval(*t, p) for t, p in zip(tables, plans)],
+        lambda: [dense_level_cuda._tilted_eval(*t, p)
+                 for t, p in zip(tables, plans)],
+        ["tilted_eval_kernel"], ["tilted_eval_kernel"]))
+    return cases
+
+
+def quant_cases(old, variants, xs):
+    """The quantizers' cases, each checked old == new first."""
+    new_q = ["quant_kernel"]
+    for x in xs:
+        for a, b in zip(old.quantize(x), quant_cuda.quantize_int8(x)):
+            same(a, b, f"#5 {x.numel()} elements")
+        for v in VARIANTS:
+            for a, b in zip(variants.quantize(x, v),
+                            quant_cuda.quantize_int8(x)):
+                same(a, b, f"#5 variant {v}, {x.numel()} elements")
+    x1 = xs[1]
+    for a, b in zip(old.quantize(x1, True, 1),
+                    quant_cuda.quantize_int8_stochastic(x1, 1)):
+        same(a, b, "#6 conv1 input")
+    cases = [
+        ("#5 int8 quantizer, 7 layer inputs (49.2M elements)",
+         lambda: [old.quantize(x) for x in xs],
+         lambda: [quant_cuda.quantize_int8(x) for x in xs],
+         ["absmax_kernel", "quantize_kernel"], new_q),
+        ("#6 stochastic quantizer, conv1 input (19.7M elements)",
+         lambda: old.quantize(x1, True, 1),
+         lambda: quant_cuda.quantize_int8_stochastic(x1, 1),
+         ["absmax_kernel", "quantize_kernel"], new_q)]
+    for v in VARIANTS:
+        what = ("two launches (max; reverse re-read), same slot" if v == 0
+                else f"one launch, {v} groups of 4 a thread in registers")
+        cases.append((
+            f"#5 over the 7 inputs: old = {what}; new = the port's one "
+            f"launch, {quant_cuda.REG_GROUPS} groups",
+            lambda v=v: [variants.quantize(x, v) for x in xs],
+            lambda: [quant_cuda.quantize_int8(x) for x in xs],
+            ["absmax_slot_kernel", "quantize_reverse_kernel"] if v == 0
+            else new_q, new_q))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", required=True, type=pathlib.Path)
@@ -254,9 +550,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    for name in ("pyramid_dense", "integral_tables", "dense_level"):
+    for name in ("pyramid_dense", "dense_level", "integral_tables",
+                 "quant_int8"):
         print_ptxas(f"new {name}", _build.build_library(name)[1])
     old = Old(args.old_csrc)
+    variants = Variants()
 
     frames = torch.from_numpy(face_clip(B, *FRAME, seed=11)).to(dev)
     face_work = equalize_hist(resize_linear_exact(frames, (160, 90)))
@@ -264,87 +562,29 @@ def main() -> int:
     face = FaceDetector(FRAME, device=dev).engine
     nose = NoseDetector(FRAME, device=dev).part_engines["nose"]
     eye = EyeDetector(FRAME, device=dev).part_engines["right"]
-    mouth = MouthDetector(FRAME, device=dev).part_engines["mouth"]
+    qdet = QuantizedCnnFaceDetector(FRAME, device=dev)
+    taps = []
+    qdet.model(qdet.letterbox(frames), taps)
+    xs = [x for x, _, _ in taps]
 
-    def levels(eng):
-        return [resize_linear_exact(part, (l.sw, l.sh)) for l in eng.levels]
-
-    eye_l, mouth_l = levels(eye), levels(mouth)
-    cases = []
-    pyr_names = (["pyramid_dense_kernel"], ["pyramid_band_kernel"])
-    for what, work, plan in (("#1 face path, 7 levels 160x90", face_work,
-                              face._plan),
-                             ("#1 nose launch, 20 levels 219x123 .. 36x20",
-                              part, nose._plan)):
-        for li, (o, n) in enumerate(zip(old.pyramid(work, plan),
-                                        new_pyramid(work, plan))):
-            for a, b, name in zip(o, n, ("image", "vnf", "alive")):
-                if b is not None:
-                    same(a, b, f"{what} level {li} {name}")
-        cases.append((what, lambda w=work, p=plan: old.pyramid(w, p),
-                      lambda w=work, p=plan: new_pyramid(w, p), *pyr_names))
-
-    int_names = (["integral_tables_kernel"], ["integral_bands_kernel"])
-    for what, imgs in (("#4 right eye, 24 levels", eye_l),
-                       ("#4 right eye, 6 largest levels", eye_l[:6]),
-                       ("#4 mouth, 23 levels", mouth_l)):
-        for x in imgs:
-            for a, b in zip(old.integral(x), integral_cuda.integral_tables(x)):
-                same(a, b, f"{what} {tuple(x.shape)}")
-        cases.append((
-            what, lambda xs=imgs: [old.integral(x) for x in xs],
-            lambda xs=imgs: [integral_cuda.integral_tables(x) for x in xs],
-            *int_names))
-
-    plans = [eye._level_plans[li] for li in range(len(eye.levels))]
-    tables = []
-    for x in eye_l:
-        ii, sq = integral_cuda.integral_tables(x)
-        tables.append((ii, sq, dense_level_cuda.tilted_table(ii)))
-    for t, p in zip(tables, plans):
-        for a, b in zip(old.tilted_eval(*t, p),
-                        dense_level_cuda._tilted_eval(*t, p)):
-            same(a, b, "#2 evaluation")
-    cases.append((
-        "#2 tiled evaluation, right eye, 24 levels",
-        lambda: [old.tilted_eval(*t, p) for t, p in zip(tables, plans)],
-        lambda: [dense_level_cuda._tilted_eval(*t, p)
-                 for t, p in zip(tables, plans)],
-        ["tilted_eval_kernel"], ["tilted_eval_kernel"]))
-    for what, lis in (("18 levels 181x102 .. 22x20", range(6, 24)),
-                      ("24 levels", range(24)),
-                      ("6 largest levels", range(6))):
-        cases.append((
-            f"#2 tilted dense phase (#4 + tilted table + evaluation), "
-            f"right eye, {what}",
-            lambda ls=lis: [old.tilted_phase(eye_l[li], plans[li])
-                            for li in ls],
-            lambda ls=lis: [dense_level_cuda.dense_level_tilted(eye_l[li],
-                                                               plans[li])
-                            for li in ls],
-            ["integral_tables_kernel", "tilted_table_kernel",
-             "tilted_eval_kernel"],
-            ["integral_bands_kernel", "tilted_table_kernel",
-             "tilted_eval_kernel"]))
-
-    results = ab(gpu, cases)
-    per_level = {
-        "levels": [list(x.shape[1:]) for x in eye_l],
-        "old_us": per_call_us(lambda: [old.integral(x) for x in eye_l],
-                              "integral_tables_kernel", len(eye_l)),
-        "new_us": per_call_us(
-            lambda: [integral_cuda.integral_tables(x) for x in eye_l],
-            "integral_bands_kernel", len(eye_l))}
-    rows = zip(map(tuple, per_level["levels"]), per_level["old_us"],
-               per_level["new_us"])
-    print(f"ab: #4 per level of the right eye, (h, w): old us, new us: "
-          f"{[(hw, round(o, 1), round(n, 1)) for hw, o, n in rows]} "
-          f"[{gpu}]",
+    results = ab(gpu, dense_cases(old, face, nose, eye, face_work, part)
+                 + quant_cases(old, variants, xs))
+    per_input = {
+        "elements": [x.numel() for x in xs],
+        "old_us": per_launch_us(lambda: [old.quantize(x) for x in xs],
+                                ["absmax_kernel", "quantize_kernel"]),
+        "new_us": per_launch_us(
+            lambda: [quant_cuda.quantize_int8(x) for x in xs],
+            ["quant_kernel"]),
+        "two_launch_us": per_launch_us(
+            lambda: [variants.quantize(x, 0) for x in xs],
+            ["absmax_slot_kernel", "quantize_reverse_kernel"])}
+    print(f"ab: #5 per layer input, kernel us: {per_input} [{gpu}]",
           flush=True)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"gpu": gpu, "batch": B, "results": results,
-                   "integral_per_level": per_level}, f, indent=1)
+                   "quant_per_input": per_input}, f, indent=1)
     print(f"ab: outputs of old and new equal; numbers in {args.out} [{gpu}]")
     return 0
 
