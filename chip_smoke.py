@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: the face
-path, the part chain (nose, mouth, eyes) and the learned face detector
-(int8 and bf16).
+path, the part chain (nose, mouth, eyes), the ear detector, the learned
+face detector (int8 and bf16), the motion tracker and the drawing ops.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -24,7 +24,10 @@ Phases, each printing its findings, any failure ending the run non-zero:
    and 1x1; the int8 quantizer on the seven layer inputs of a B=64 720p
    int8 forward and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all
    zeros), the stochastic quantizer on the conv1 input for two seeds
-   (values, scale, and its mean rounding error within 5 sigma of 0);
+   (values, scale, and its mean rounding error within 5 sigma of 0); the
+   pyramid kernel on both plans of each ear pairing (profile faces at
+   160x90; ears at 320x180, four wide levels) over the [normal, flipped]
+   batch of B=64 720p profile frames, 128 work images, and noise;
 4. face path: ``FaceDetector((1280, 720), device="cuda").process`` over
    consecutive batches of one stream; the pyramid kernel must launch once
    per batch, at least one face must be tracked, and the tracked faces
@@ -38,7 +41,15 @@ Phases, each printing its findings, any failure ending the run non-zero:
    overflow flags) equal the port's CPU run; nose boxes, mouth candidates
    and alive windows after the dense phase of every tilted engine are
    non-zero;
-6. learned path: ``QuantizedCnnFaceDetector((1280, 720),
+6. ear path: ``EarDetector((1280, 720), device="cuda").process`` over
+   two B=64 batches of one stream of profile frames (``utils/synth``), with
+   the default pairing (synthetic ear and profile cascades) and with the
+   real ``haarcascade_profileface.xml``: the pyramid kernel launches twice
+   per batch (once of them with the ear's wide levels); the first batch's
+   outputs, grouped profile faces and raw ear candidates equal the port's
+   CPU run; the default pairing keeps windows alive and finds profile
+   faces and ears on both the normal and the flipped side;
+7. learned path: ``QuantizedCnnFaceDetector((1280, 720),
    device="cuda").process`` over two B=64 batches of one stream: the
    quantizer launches 7 times per forward, every layer's int8 tensor and
    scale and the output equal the CPU run's, the tracked faces (ids and
@@ -46,7 +57,16 @@ Phases, each printing its findings, any failure ending the run non-zero:
    ``CnnFaceDetector`` on the card tracks the same faces as on the CPU
    (ids equal, rects within 2 px: cuDNN sums the bf16 convs in another
    order);
-7. times (CUDA events, kernel and plain version in turns): each kernel at
+8. tracker and drawing: ``Tracker((1280, 720), device="cuda")`` on a
+   moving-blob clip, blobs per frame and the final MHI equal to the CPU
+   run over 8 frames (one more step's rects, valid and mask too, its
+   orientation within 1e-3 degrees), then 64 frames timed, with the
+   label-propagation iterations per frame; ``render_detections`` rect,
+   circle and costume blend on a B=64 720p BGR batch on the card against
+   the numpy twins (``host=True``): rect and circle exactly, the blend
+   within 1 (the twin divides by 255 and fuses no multiply-add) and
+   exactly the port's CPU blend on its first frames;
+9. times (CUDA events, kernel and plain version in turns): each kernel at
    the main paths' shapes with its plain version, its bound from the
    shapes and this run's data, and a PyTorch call computing the same
    function where there is one (the ``torch.cumsum`` pair for the integral
@@ -59,7 +79,8 @@ Phases, each printing its findings, any failure ending the run non-zero:
    the single-block kernel of earlier versions took, over all 24, and over
    the six largest against the plain tilted table and dense phase that
    took them before, each with the table pass's and the evaluation's
-   share; the face path's, the part detectors' and the learned detectors'
+   share; the pyramid kernel on the ear's plans (128 work images); the
+   face path's, the part detectors', the ear's and the learned detectors'
    device ms per batch; each detector's ``process()`` frames/s at B=64
    720p.
 
@@ -71,6 +92,7 @@ The last lines are the kernel summary as JSON, the card's
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -82,10 +104,15 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from nubomedia_vca_tpu_torch.api.render import (  # noqa: E402
+    render_detections)
 from nubomedia_vca_tpu_torch.cascade.engine import get_engine  # noqa: E402
+from nubomedia_vca_tpu_torch.cascade.paths import find_cascade  # noqa: E402
 from nubomedia_vca_tpu_torch.models import (  # noqa: E402
-    CnnFaceDetector, EyeDetector, FaceDetector, MouthDetector, NoseDetector,
-    QuantizedCnnFaceDetector)
+    CnnFaceDetector, EarDetector, EarDetectorConfig, EyeDetector,
+    FaceDetector, MouthDetector, NoseDetector, QuantizedCnnFaceDetector,
+    Tracker)
+from nubomedia_vca_tpu_torch.models import tracker  # noqa: E402
 from nubomedia_vca_tpu_torch.models.face import (  # noqa: E402
     DEFAULT_FACE_CASCADE)
 from nubomedia_vca_tpu_torch.ops import quant  # noqa: E402
@@ -96,7 +123,8 @@ from nubomedia_vca_tpu_torch.ops.integral import (  # noqa: E402
     tilted_from_integral, tilted_integral_image)
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
-from nubomedia_vca_tpu_torch.utils.synth import face_clip  # noqa: E402
+from nubomedia_vca_tpu_torch.utils.synth import (  # noqa: E402
+    blob_clip, face_clip, profile_scene)
 
 FRAME = (1280, 720)
 BATCH = 64
@@ -104,6 +132,11 @@ PART_BATCHES = 2       # consecutive batches of one stream on the part path
 PART_BATCH = 4         # frames per part-path batch
 LEARNED_BATCHES = 2    # consecutive B=64 batches of one stream, learned path
 BF16_ATOL = 0.0625     # bf16 forward, card vs CPU (tests/test_torch_cnn.py)
+EAR_BATCHES = 2        # consecutive B=64 batches of one stream, ear path
+TRACKER_FRAMES = 64    # frames of the tracker's timed run
+TRACKER_CPU_FRAMES = 8  # consecutive frames held against the CPU run
+ORIENT_ATOL = 1e-3     # motion orientation, degrees (tests/test_torch_tracker)
+REAL_PROFILE = "haarcascade_profileface.xml"
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the
 # float32 rate outside the tensor cores, which the dense kernels' integer
 # adds and float32 compares run at
@@ -148,8 +181,11 @@ DETECTORS = (NoseDetector, MouthDetector, EyeDetector)
 TILTED_LEVELS = {"NoseDetector": 0, "MouthDetector": 23, "EyeDetector": 48}
 
 
+START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def gpu_line() -> str:
@@ -565,6 +601,276 @@ def part_path(dets, dev) -> dict[str, int]:
 def as_tuples(faces):
     return [[(f.id, f.rect()) for f in fs] for fs in faces]
 
+# ------------------------------------------------------------ ear, tracker
+def ear_clip(n: int, seed: int = 0) -> np.ndarray:
+    """[n, 720, 1280] uint8: a left- and a right-facing cartoon profile
+    head, drifting; the normal pass finds the first, the flipped pass the
+    second."""
+    return np.stack([profile_scene(
+        *FRAME, heads=((340 + 2 * (t % 16), 360, 160, "left"),
+                       (940 - 2 * (t % 16), 360, 160, "right")),
+        seed=seed + t) for t in range(n)])
+
+
+def ear_config(pairing: str) -> EarDetectorConfig:
+    """The default pairing (synthetic ear + synthetic profile cascade), or
+    the real production profile cascade (bundled) with the same ear."""
+    if pairing == "default":
+        return EarDetectorConfig()
+    return EarDetectorConfig(face_cascade_path=find_cascade(REAL_PROFILE))
+
+
+def ear_detectors(dev) -> dict:
+    return {p: EarDetector(FRAME, ear_config(p), device=dev)
+            for p in ("default", "real profile")}
+
+
+def ear_work(det, eng, gray: torch.Tensor) -> torch.Tensor:
+    """The engine's work images of the [normal, flipped] batch."""
+    both = torch.cat([gray, torch.flip(gray, dims=(2,))])
+    return equalize_hist(resize_linear_exact(both, (eng.image_w,
+                                                    eng.image_h)))
+
+
+def check_ear_pyramid(dev, ears, frames) -> tuple[float, float]:
+    """The pyramid kernel vs its plain version on each ear pairing's two
+    plans (profile faces at 160x90; ears at 320x180, its four wide levels
+    in bands) over the [normal, flipped] batch of B=64 720p profile frames,
+    128 work images, and noise; → (max |err|, max |err| on the plans that
+    hold a wide level)."""
+    gray = torch.from_numpy(frames).to(dev)
+    err = wide_err = 0.0
+    for pairing, det in ears.items():
+        for what, eng in (("profile faces", det.face_engine),
+                          ("ears", det.part_engines["ear"])):
+            work = ear_work(det, eng, gray)
+            noise = torch.from_numpy(np.random.RandomState(10).randint(
+                0, 256, work.shape, np.uint8)).to(dev)
+            n_alive = []
+            for x in (work, noise):
+                got = dense_cuda.pyramid_dense_phase(x, eng._plan)
+                want = dense_cuda.pyramid_dense_phase_reference(x, eng._plan)
+                torch.cuda.synchronize()
+                for li, (g, w) in enumerate(zip(got, want)):
+                    for gt, wt, name in zip(g, w, ("image", "vnf", "alive")):
+                        e = assert_equal(gt, wt, f"pyramid ear {pairing} "
+                                         f"{what} level {li} {name}")
+                        err = max(err, e)
+                        if eng._plan.n_wide:
+                            wide_err = max(wide_err, e)
+                n_alive.append(sum(int(a.sum()) for _, _, a in got))
+            p = eng._plan
+            print(f"pyramid kernel, ear {pairing} {what} -> work "
+                  f"{eng.image_w}x{eng.image_h}, {len(p.levels)} levels in "
+                  f"{len(p.items)} bands ({p.n_wide} wide), "
+                  f"{work.shape[0]} images: == plain (level images, vnf, "
+                  f"alive); alive windows {n_alive[0]} (profiles) "
+                  f"{n_alive[1]} (noise); smem per block "
+                  f"{p.band_smem_bytes} B, records "
+                  f"{'staged' if p.staged else 'through L1'}")
+            if pairing == "default" and n_alive[0] == 0:
+                raise AssertionError(f"ear {what}: dense phase vacuous")
+    return err, wide_err
+
+
+def record_raw(det) -> list:
+    """Keep what ``det._device_pass`` returns on each ``process`` call
+    (the grouped faces and compacted part candidates it works from)."""
+    seen = []
+    run = det._device_pass
+
+    def recorded(gray):
+        out = run(gray)
+        seen.append(out)
+        return out
+
+    det._device_pass = recorded
+    return seen
+
+
+def ear_path(ears, batches) -> dict[str, int]:
+    """``EarDetector.process`` over consecutive B=64 batches of one stream
+    for each pairing: the pyramid kernel launches as the routes predict
+    (twice per batch, once of them with the ear's wide levels); the first
+    batch's outputs, grouped profile faces and raw ear candidates equal
+    the port's CPU run; the default pairing finds profile faces and ears
+    on both the normal and the flipped side."""
+    total = dict.fromkeys(KERNELS, 0)
+    n = len(batches[0])
+    for pairing, det in ears.items():
+        raw = record_raw(det)
+        reset_counts()
+        out = []
+        for b in batches:
+            out += det.process(b)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: v * len(batches)
+                for k, v in predicted_launches(det).items()}
+        print(f"ear path ({pairing}): {len(batches)} batches of {n} frames "
+              f"({2 * n} in the engines), launches {counts} (routes predict "
+              f"{want})")
+        if counts != want or want["pyramid_dense_phase"] != 2 * len(batches):
+            raise AssertionError(f"ear {pairing}: launches differ from the "
+                                 "routes")
+        for k, v in counts.items():
+            total[k] += v
+        cpu = EarDetector(FRAME, ear_config(pairing), device="cpu")
+        cpu_raw = record_raw(cpu)
+        if cpu.process(batches[0]) != out[:n]:
+            raise AssertionError(f"ear {pairing}: CUDA outputs differ from "
+                                 "the CPU run")
+        (fg, pg), (fc, pc) = raw[0], cpu_raw[0]
+        for g, c in zip(fg, fc):
+            if not np.array_equal(g, c):
+                raise AssertionError(f"ear {pairing}: grouped faces differ")
+        for g, c in zip(pg["ear"], pc["ear"]):
+            if not np.array_equal(g, c):
+                raise AssertionError(f"ear {pairing}: raw ears differ")
+        det._face_raw, det._n_real = fg, n
+        sides = {}
+        for name, flipped in (("normal", False), ("flipped", True)):
+            found = [det._side_detections(pg, b + n * flipped, flipped)
+                     for b in range(n)]
+            sides[name] = (sum(len(f) for f, _ in found),
+                           sum(len(e) for _, e in found))
+        print(f"ear path ({pairing}): outputs, grouped profile faces and raw "
+              f"ear candidates == CPU on batch 0; profile faces, ears per "
+              f"side {sides}; ear candidates {int(pg['ear'][1].sum())}, "
+              f"overflowing frames {int(pg['ear'][2].sum())}; first frame "
+              f"{out[0]}")
+        if pairing == "default" and min(min(v) for v in sides.values()) < 1:
+            raise AssertionError("ear: a side found no profile face or ear")
+        del det._device_pass          # the class's own again
+    return total
+
+
+def ear_device_pass(det, gray):
+    """The ear detector's device pass on device-resident frames: the flip,
+    both images, the profile pass with grouping and the ear engine with
+    candidate compaction (``_device_pass`` without the host copies)."""
+    def run():
+        fe = det.face_engine
+        fe.group_device(fe.detect_raw(ear_work(det, fe, gray)),
+                        det.FACE_MIN_NEIGHBORS)
+        return [eng.compact_raw(eng.detect_raw(ear_work(det, eng, gray)))
+                for eng in det.part_engines.values()]
+    return run
+
+
+def tracker_path(dev, gpu) -> None:
+    """``Tracker.process`` at 1280x720 on the moving-blob clip: blobs per
+    frame and the final MHI equal the CPU run over the first frames; then
+    the timed run, and the label-propagation iterations per frame."""
+    clip = blob_clip(TRACKER_FRAMES, *FRAME)
+    n = TRACKER_CPU_FRAMES
+    got = Tracker(FRAME, device=dev)
+    want = Tracker(FRAME, device="cpu")
+    g_out, c_out = got.process(clip[:n]), want.process(clip[:n])
+    blobs = [len(b) for b in g_out]
+    if g_out != c_out:
+        raise AssertionError("tracker: CUDA blobs differ from the CPU run")
+    assert_equal(got.state.mhi.cpu(), want.state.mhi, "tracker MHI")
+    if sum(blobs) == 0:
+        raise AssertionError("tracker: no blob on the moving-blob clip")
+    # one more step from both states: its mask and orientation too
+    kw = dataclasses.asdict(got.config)
+    kw = {k: kw[k] for k in ("threshold", "mhi_duration", "seg_thresh",
+                             "max_blobs")}
+    rg = tracker.tracker_step(got.state, clip[n], n / got.fps, **kw)
+    rc = tracker.tracker_step(want.state, clip[n], n / want.fps, **kw)
+    for g, c, what in zip(rg[1:4], rc[1:4], ("rects", "valid", "mask")):
+        assert_equal(g.cpu(), c, f"tracker step {what}")
+    mask = rc[3]
+    orient_err = float((rg[4].cpu() - rc[4]).abs()[mask].max()) \
+        if mask.any() else 0.0
+    print(f"tracker: {n} frames 1280x720, blobs per frame {blobs}: CUDA == "
+          f"CPU (blob lists, final MHI; one step's rects, valid, mask); "
+          f"orientation max |err| on the mask {orient_err:.3g} degrees "
+          f"(tolerance {ORIENT_ATOL})")
+    if orient_err > ORIENT_ATOL:
+        raise AssertionError("tracker: orientation differs from the CPU")
+    tr = Tracker(FRAME, device=dev)
+    tr.process(clip[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.process(clip)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    frames = torch.from_numpy(clip).to(dev)
+    ts = np.arange(TRACKER_FRAMES) / 30.0
+    iters: list[int] = []
+
+    def scan():
+        iters.clear()
+        tracker.tracker_scan(tracker.init_state(*FRAME[::-1], device=dev),
+                             frames, ts, iterations=iters, **kw)
+
+    step_ms = cuda_ms(scan, 2) / TRACKER_FRAMES
+    print(f"time: Tracker.process {secs * 1000.0 / TRACKER_FRAMES:.4f} ms per "
+          f"1280x720 frame over {TRACKER_FRAMES} frames in one call "
+          f"({sum(len(b) for b in out)} blobs); device step (tracker_scan on "
+          f"device-resident frames, CUDA events) {step_ms:.4f} ms per frame; "
+          f"label-propagation iterations per frame mean "
+          f"{np.mean(iters):.2f} max {max(iters)} (the changed flag read "
+          f"every {tracker.SEG_CHECK_EVERY}) [{gpu}]")
+    # what the host's read of the flag costs: the same scan reading it
+    # after every iteration and after every 16 (exact either way)
+    every = tracker.SEG_CHECK_EVERY
+    try:
+        for k in (1, 16):
+            tracker.SEG_CHECK_EVERY = k
+            ms = cuda_ms(scan, 2) / TRACKER_FRAMES
+            print(f"time: tracker device step with the flag read every {k} "
+                  f"iterations {ms:.4f} ms per frame (iterations mean "
+                  f"{np.mean(iters):.2f}) [{gpu}]")
+    finally:
+        tracker.SEG_CHECK_EVERY = every
+
+
+def drawing_path(dev, gpu, gray_frames) -> None:
+    """``render_detections`` (rect, circle, costume blend) on a B=64 720p
+    BGR batch on the card against ``host=True`` (the numpy twins): rect and
+    circle exactly; the blend within 1 of the twin (a true division by 255
+    and no FMA there) and exactly the port's CPU run on its first frames."""
+    rng = np.random.RandomState(9)
+    bgr = np.stack([gray_frames, 255 - gray_frames,
+                    gray_frames // 2 + 64], -1)
+    rects = [[(int(rng.randint(-40, FRAME[0])), int(rng.randint(-40, FRAME[1])),
+               int(rng.randint(0, 400)), int(rng.randint(0, 300)))
+              for _ in range(rng.randint(0, 9))] for _ in range(len(bgr))]
+    overlay = rng.randint(0, 256, (48, 64, 4)).astype(np.uint8)
+    overlay[..., 3] = rng.randint(1, 255, (48, 64))
+    bgr_dev = torch.from_numpy(bgr).to(dev)
+    for mode in ("rect", "circle", "overlay"):
+        kw = dict(mode=mode, color=(0, 0, 255))
+        if mode == "overlay":
+            kw["overlay"] = (overlay, (0.1, -0.2, 1.3, 0.9))
+        got = render_detections(bgr, rects, device=dev, **kw)
+        if got.device != bgr_dev.device:
+            raise AssertionError("render: result is not on the card")
+        got = got.cpu().numpy()
+        host = render_detections(bgr, rects, host=True, **kw)
+        diff = np.abs(got.astype(np.int16) - host)
+        note = ""
+        if mode == "overlay":
+            cpu = render_detections(bgr[:4], rects[:4], device="cpu", **kw)
+            if not np.array_equal(cpu.numpy(), got[:4]):
+                raise AssertionError("blend: card differs from the CPU run")
+            note = (f"; == the port's CPU blend on the first 4 frames; "
+                    f"{int((diff > 0).sum())} of {diff.size} values differ "
+                    f"from the twin, max {int(diff.max())} (bound 1)")
+            if diff.max() > 1:
+                raise AssertionError("blend: more than 1 from the twin")
+        elif diff.any():
+            raise AssertionError(f"render {mode}: card differs from the twin")
+        ms = cuda_ms(lambda: render_detections(bgr_dev, rects, **kw), 3)
+        print(f"drawing {mode}: B={len(bgr)} 720p BGR, "
+              f"{sum(map(len, rects))} boxes: card "
+              f"{'== twin' if mode != 'overlay' else 'vs twin'}{note}; "
+              f"{ms:.4f} ms per batch on device-resident frames [{gpu}]")
+
+
 
 def learned_path(dev) -> dict[str, int]:
     clip = face_clip(LEARNED_BATCHES * BATCH, *FRAME, seed=11)
@@ -792,10 +1098,11 @@ def time_pyramid(gpu, work, plan, what) -> dict:
         (img.numel() if img is not None else 0) + 5 * vnf.numel()
         for img, vnf, _ in res)
     # + per level pixel: the 2-tap resize (8) and the two tables (4)
-    n_ops = sum(dense_ops(plan.tables, vnf, alive) + 12.0 * BATCH * l.sh
-                * l.sw for l, (_, vnf, alive) in zip(plan.levels, res))
+    n_ops = sum(dense_ops(plan.tables, vnf, alive) + 12.0 * work.shape[0]
+                * l.sh * l.sw for l, (_, vnf, alive) in zip(plan.levels, res))
     b_ms, b_by = bound(n_bytes, n_ops)
-    print(f"time: pyramid dense kernel {k:.4f} ms per B={BATCH} 720p batch "
+    print(f"time: pyramid dense kernel {k:.4f} ms per {work.shape[0]}-image "
+          "720p batch "
           f"over {what} ({len(plan.levels)} levels in {len(plan.items)} "
           f"bands; runs {runs}); plain {p:.4f} ms; bound {b_ms:.4f} ms "
           f"({b_by}) [{gpu}]")
@@ -837,7 +1144,8 @@ def level_images(part, eng) -> dict[int, torch.Tensor]:
             for li, l in enumerate(eng.levels)}
 
 
-def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
+def times(dev, gpu, face_eng, dets, frames_720, xs, ears,
+          ear_frames) -> dict[str, dict]:
     out: dict[str, dict] = {}
     # pyramid kernel: the face path's 7 levels at 160x90, and the nose's
     # 24-level launch at 320x180
@@ -870,6 +1178,17 @@ def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
 
     time_quant(dev, gpu, xs, out)
 
+    # the pyramid kernel on the ear's plans: 128 work images per batch
+    ear_gray = torch.from_numpy(ear_frames).to(dev)
+    for pairing, det in ears.items():
+        for what, eng in (("profile faces at 160x90", det.face_engine),
+                          ("ears at 320x180 (24 levels, 4 wide)",
+                           det.part_engines["ear"])):
+            if pairing != "default" and eng is det.part_engines["ear"]:
+                continue          # the same ear engine as the default's
+            time_pyramid(gpu, ear_work(det, eng, ear_gray), eng._plan,
+                         f"the ear's {pairing} {what}")
+
     gray = torch.from_numpy(frames_720).to(dev)
     dev_ms = cuda_ms(lambda: face_eng.detect_grouped(equalize_hist(
         resize_linear_exact(gray, (160, 90)))), 20)
@@ -892,6 +1211,23 @@ def times(dev, gpu, face_eng, dets, frames_720, xs) -> dict[str, dict]:
               f"decode, NMS on device-resident frames) {dev_ms:.4f} ms/batch "
               f"({fwd_ms:.4f} ms of it the forward), "
               f"{BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} 720p [{gpu}]")
+    for pairing, det in ears.items():
+        dev_ms = cuda_ms(ear_device_pass(det, ear_gray), 5)
+        print(f"time: EarDetector ({pairing}) device pass (flip, both images, "
+              f"profile pass, ear engine, compaction on device-resident "
+              f"frames; {2 * BATCH} images in the engines) {dev_ms:.4f} "
+              f"ms/batch, {BATCH * 1000.0 / dev_ms:.1f} frames/s; B={BATCH} "
+              f"720p [{gpu}]")
+        det.process(ear_frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            det.process(ear_frames)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"time: EarDetector ({pairing}).process "
+              f"{3 * BATCH / secs:.1f} frames/s ({secs * 1000.0 / 3:.3f} ms "
+              f"per {BATCH}-frame 720p host batch of profile frames) [{gpu}]")
     for det in (FaceDetector(FRAME, device=dev), *dets.values(), *cnn_dets):
         det.process(frames_720)
         torch.cuda.synchronize()
@@ -927,9 +1263,15 @@ def main() -> int:
     frames = {size: face_clip(BATCH, *size, seed=11)
               for size in (FRAME, (640, 480))}
     dets = part_engines(dev)
+    ears = ear_detectors(dev)
+    ear_frames = ear_clip(EAR_BATCHES * BATCH)
     err = {"pyramid_dense_phase": check_pyramid(
         dev, frames, dets["NoseDetector"].part_engines["nose"])}
     err.update(check_level_kernels(dev, dets, frames[FRAME]))
+    ear_err, ear_wide_err = check_ear_pyramid(dev, ears, ear_frames[:BATCH])
+    err["pyramid_dense_phase"] = max(err["pyramid_dense_phase"], ear_err)
+    err["pyramid_dense_phase_wide"] = max(err["pyramid_dense_phase_wide"],
+                                          ear_wide_err)
     xs = layer_inputs(dev, frames[FRAME])
     err.update(check_quant(dev, xs))
 
@@ -940,15 +1282,24 @@ def main() -> int:
     for k, v in part_path(dets, dev).items():
         launches[k] += v
 
-    phase("6 learned path")
+    phase("6 ear path")
+    for k, v in ear_path(ears, np.split(ear_frames, EAR_BATCHES)).items():
+        launches[k] += v
+
+    phase("7 learned path")
     for k, v in learned_path(dev).items():
         launches[k] += v
     missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")
 
-    phase("7 times")
-    t = times(dev, gpu, face_eng, dets, frames[FRAME], xs)
+    phase("8 tracker and drawing")
+    tracker_path(dev, gpu)
+    drawing_path(dev, gpu, frames[FRAME])
+
+    phase("9 times")
+    t = times(dev, gpu, face_eng, dets, frames[FRAME], xs, ears,
+              ear_frames[:BATCH])
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

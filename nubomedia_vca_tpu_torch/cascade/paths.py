@@ -4,10 +4,11 @@ Probes, in order:
 
 1. the port's own ``assets/haarcascades`` directory, which ships
    byte-identical copies of OpenCV's ``haarcascade_frontalface_alt.xml``,
-   ``haarcascade_{right,left}eye_2splits.xml`` and ``haarcascade_smile.xml``
-   (license headers kept) and of the JAX package's trained
-   ``vca_nose_synthetic.xml``, so a host without OpenCV data files still
-   has the face and part cascades;
+   ``haarcascade_{right,left}eye_2splits.xml``, ``haarcascade_smile.xml``
+   and ``haarcascade_profileface.xml`` (license headers kept) and of the
+   JAX package's trained ``vca_nose_synthetic.xml``,
+   ``vca_profileface_synthetic.xml`` and ``vca_ear_synthetic.xml``, so a
+   host without OpenCV data files still has the face and part cascades;
 2. ``$VCA_CASCADE_PATH`` (colon-separated directories);
 3. the reference's OpenCV 2.x system dir;
 4. the modern OpenCV 4 system dir.

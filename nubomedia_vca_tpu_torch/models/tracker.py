@@ -1,0 +1,346 @@
+"""Motion tracker — the PyTorch port of ``nubomedia_vca_tpu/models/tracker.py``
+(the rebuild of NuboTracker, gstnubotracker.cpp).
+
+Reference per-frame pipeline (gstnubotracker.cpp:339-421): gray convert,
+absdiff vs previous frame, binary threshold (default 20), motion-history
+update (MHI_DURATION 0.2), motion gradient, segmentMotion into blob rects,
+area filter (min 50 / max 30000) + distance merge (35 px) of blobs, draw +
+rate-limited "tracker-event" signal.
+
+Device design, as in the JAX package: the per-frame step runs on the
+device with carried state (previous gray frame + MHI). Segmentation
+(OpenCV's floodfill-based cvSegmentMotion) is seeded connected components
+by iterative min-label propagation with pointer jumping: pixels are
+4-connected when their MHI timestamps differ by at most seg_thresh, and a
+component is reported iff it contains a current-timestamp (seed) pixel.
+Blob bounding boxes come from scatter-min/max over component roots; the
+area filter and distance merge run on the host with the reference's exact
+iteration order (__join_objects, gstnubotracker.cpp:171-200), copied from
+the JAX package.
+
+The JAX package's ``lax.while_loop`` becomes a Python loop whose exit test
+reads a device flag once every ``SEG_CHECK_EVERY`` iterations (one host
+sync per check). That is exact: labels only decrease, so an unchanged
+label map after a group of iterations means every iteration of the group
+was at the fixed point, where an iteration changes nothing.
+
+Units: timestamps are pts seconds as float32, as in the JAX package (the
+reference's CPU-clock milliseconds collapse the MHI to the current
+silhouette).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..cascade.engine import _resolve_device
+
+# label-propagation iterations between two reads of the "changed" flag
+SEG_CHECK_EVERY = 4
+
+
+@dataclasses.dataclass
+class TrackerConfig:
+    """Knobs mirror the GObject properties (gstnubotracker.cpp:22-33)."""
+
+    threshold: int = 20         # binary diff threshold
+    min_area: int = 50
+    max_area: int = 30000
+    distance: int = 35          # blob merge distance
+    visual_mode: int = 0
+    activate_events: int = 0    # "server events"
+    events_ms: int = 30001
+    mhi_duration: float = 0.2
+    seg_thresh: float = 0.05
+    max_blobs: int = 32         # fixed device capacity for segmentation
+
+
+@dataclasses.dataclass
+class TrackerState:
+    prev_gray: torch.Tensor    # [H, W] uint8
+    mhi: torch.Tensor          # [H, W] float32
+    initialized: torch.Tensor  # [] bool
+
+    @classmethod
+    def from_numpy(cls, prev_gray, mhi, initialized,
+                   device: str | torch.device = "cuda") -> "TrackerState":
+        """A state from host arrays (for example a JAX package state's
+        fields through ``np.asarray``), on `device`."""
+        dev = _resolve_device(device)
+        return cls(
+            prev_gray=torch.from_numpy(
+                np.array(prev_gray, np.uint8)).to(dev),
+            mhi=torch.from_numpy(np.array(mhi, np.float32)).to(dev),
+            initialized=torch.tensor(bool(np.asarray(initialized)),
+                                     device=dev))
+
+
+def init_state(h: int, w: int,
+               device: str | torch.device = "cuda") -> TrackerState:
+    dev = _resolve_device(device)
+    return TrackerState(
+        prev_gray=torch.zeros((h, w), dtype=torch.uint8, device=dev),
+        mhi=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        initialized=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+
+
+def _segment(mhi, ts, seg_thresh, max_blobs, iterations=None):
+    """Seeded connected components over the 4-neighbor |Δmhi| <= seg_thresh
+    graph. Returns (rects [K,4] int32 x,y,w,h, valid [K] bool); appends the
+    label-propagation iterations run to `iterations` when given."""
+    H, W = mhi.shape
+    n = H * W
+    dev = mhi.device
+    flat_idx = torch.arange(n, dtype=torch.int64, device=dev)
+    rows = torch.arange(H, device=dev)[:, None]
+    cols = torch.arange(W, device=dev)[None, :]
+    # per direction: the shift and where its roll wraps around the edge
+    shifts = (((1, 0), (rows == 0).expand(H, W)),
+              ((-1, 0), (rows == H - 1).expand(H, W)),
+              ((0, 1), (cols == 0).expand(H, W)),
+              ((0, -1), (cols == W - 1).expand(H, W)))
+    # zero-MHI pixels are never part of a motion segment (OpenCV pre-marks
+    # them in the floodfill mask)
+    links = []
+    for shift, edge in shifts:
+        nb_val = torch.roll(mhi, shift, dims=(0, 1))
+        links.append((shift, ((mhi - nb_val).abs() <= seg_thresh) & ~edge
+                      & (mhi > 0) & (nb_val > 0)))
+
+    def step(lab):
+        m = lab
+        for shift, connected in links:
+            nb_lab = torch.roll(lab, shift, dims=(0, 1))
+            m = torch.minimum(m, torch.where(connected, nb_lab, n))
+        # pointer jumping: adopt the label of my label's pixel
+        return torch.minimum(m, m.reshape(-1)[m])
+
+    labels = flat_idx.reshape(H, W)
+    n_iter = 0
+    while True:
+        before = labels
+        for _ in range(SEG_CHECK_EVERY):
+            labels = step(labels)
+        n_iter += SEG_CHECK_EVERY
+        if torch.equal(labels, before):
+            break
+    if iterations is not None:
+        iterations.append(n_iter)
+
+    lab_flat = labels.reshape(-1)
+
+    def reduce(init, src, how):
+        out = torch.full((n,), init, dtype=torch.int32, device=dev)
+        return out.scatter_reduce_(0, lab_flat, src, how, include_self=True)
+
+    seeds = (mhi == ts).reshape(-1).to(torch.int32)
+    seeded = reduce(0, seeds, "amax") > 0
+    ys = rows.expand(H, W).reshape(-1).to(torch.int32)
+    xs = cols.expand(H, W).reshape(-1).to(torch.int32)
+    big = 1 << 30
+    xmin, ymin = reduce(big, xs, "amin"), reduce(big, ys, "amin")
+    xmax, ymax = reduce(-1, xs, "amax"), reduce(-1, ys, "amax")
+
+    is_root = (lab_flat == flat_idx) & seeded
+    # compact to capacity: earliest roots first (root keys are distinct; a
+    # zero-key slot is masked by `valid` below)
+    keys = torch.where(is_root, torch.arange(n, 0, -1, device=dev), 0)
+    sel = torch.topk(keys, max_blobs).indices
+    valid = is_root[sel]
+    rx, ry = xmin[sel], ymin[sel]
+    rw = xmax[sel] - rx + 1
+    rh = ymax[sel] - ry + 1
+    rects = torch.stack([rx, ry, rw, rh], dim=-1)
+    return torch.where(valid[:, None], rects, 0), valid
+
+
+def _motion_gradient(mhi, delta1, delta2):
+    """cv::motempl::calcMotionGradient (aperture 3): Sobel orientation in
+    degrees + validity mask from the local min/max spread of the MHI."""
+    kd = (-1.0, 0.0, 1.0)
+    ks = (1.0, 2.0, 1.0)
+    # replicate border, like OpenCV's BORDER_REPLICATE
+    p = F.pad(mhi[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+
+    def sep_conv(kx, ky):
+        horiz = p[:, :-2] * kx[0] + p[:, 1:-1] * kx[1] + p[:, 2:] * kx[2]
+        return (horiz[:-2] * ky[0] + horiz[1:-1] * ky[1]
+                + horiz[2:] * ky[2])
+
+    dx = sep_conv(kd, ks)
+    dy = sep_conv(ks, kd)
+    orient = torch.rad2deg(torch.atan2(dy, dx))
+    orient = torch.where(orient < 0, orient + 360.0, orient)
+    # local min/max over the aperture window (erode/dilate)
+    H, W = mhi.shape
+    win = torch.stack([p[a:a + H, b:b + W] for a in range(3)
+                       for b in range(3)])
+    spread = win.amax(0) - win.amin(0)
+    lo, hi = min(delta1, delta2), max(delta1, delta2)
+    mask = (spread >= lo) & (spread <= hi)
+    small = (dx.abs() < 1e-5) & (dy.abs() < 1e-5)
+    orient = torch.where(small, 0.0, orient)
+    return mask, orient
+
+
+def _as_uint8(x, dev: torch.device) -> torch.Tensor:
+    """A uint8 tensor on `dev` from a tensor or a host array."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, np.uint8))
+    return x.to(dev, torch.uint8)
+
+
+def tracker_step(state: TrackerState, gray, ts, *, threshold, mhi_duration,
+                 seg_thresh, max_blobs, iterations=None):
+    """One frame of the tracker recurrence on the state's device. Returns
+    (new_state, rects, valid, mask, orient)."""
+    dev = state.mhi.device
+    gray = _as_uint8(gray, dev)
+    diff = (gray.to(torch.int32) - state.prev_gray.to(torch.int32)).abs()
+    silh = diff > threshold                       # cv::threshold(.., thr, 255)
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=dev)
+    # float32 throughout: ts - mhi_duration stays a float32 tensor
+    mhi = torch.where(silh, ts, torch.where(
+        state.mhi < ts - mhi_duration, 0.0, state.mhi))
+    mhi = torch.where(state.initialized, mhi, state.mhi)  # first frame: no-op
+    rects, valid = _segment(mhi, ts, seg_thresh, max_blobs, iterations)
+    valid = valid & state.initialized
+    mask, orient = _motion_gradient(mhi, 0.05, 0.5)
+    new_state = TrackerState(prev_gray=gray, mhi=mhi,
+                             initialized=torch.ones((), dtype=torch.bool,
+                                                    device=dev))
+    return new_state, rects, valid, mask, orient
+
+
+def tracker_scan(state: TrackerState, grays, timestamps, *, threshold,
+                 mhi_duration, seg_thresh, max_blobs, iterations=None):
+    """A whole frame window: grays [T,H,W], timestamps [T] → (final state,
+    rects [T,K,4], valid [T,K]), the step applied frame by frame."""
+    dev = state.mhi.device
+    grays = _as_uint8(grays, dev)
+    ts_all = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
+    all_rects, all_valid = [], []
+    for g, ts in zip(grays, ts_all):
+        state, rects, valid, _, _ = tracker_step(
+            state, g, ts, threshold=threshold, mhi_duration=mhi_duration,
+            seg_thresh=seg_thresh, max_blobs=max_blobs,
+            iterations=iterations)
+        all_rects.append(rects)
+        all_valid.append(valid)
+    return state, torch.stack(all_rects), torch.stack(all_valid)
+
+
+# ----------------------------------------------------------------- host layer
+def _calc_dist(r1, r2):
+    c1 = (r1[0] + r1[2] / 2, r1[1] + r1[3] / 2)
+    c2 = (r2[0] + r2[2] / 2, r2[1] + r2[3] / 2)
+    return np.sqrt((c1[0] - c2[0]) ** 2 + (c1[1] - c2[1]) ** 2)
+
+
+def _merge_rects(r1, r2):
+    """__merge (gstnubotracker.cpp:131-169): containment or union box."""
+    x1, y1 = min(r1[0], r2[0]), min(r1[1], r2[1])
+    x2 = max(r1[0] + r1[2], r2[0] + r2[2])
+    y2 = max(r1[1] + r1[3], r2[1] + r2[3])
+    return (x1, y1, x2 - x1, y2 - y1)
+
+
+def join_objects(rects, min_area, max_area, distance):
+    """__join_objects (gstnubotracker.cpp:171-200): back-to-front area filter
+    plus pairwise distance merge with the reference's exact ordering."""
+    rs = [tuple(int(v) for v in r) for r in rects]
+    a = len(rs) - 1
+    while a >= 0:
+        area = rs[a][2] * rs[a][3]
+        if min_area < area < max_area:
+            for b in range(a - 1, -1, -1):
+                area_b = rs[b][2] * rs[b][3]
+                if min_area < area_b < max_area and \
+                        distance > _calc_dist(rs[a], rs[b]):
+                    rs[b] = _merge_rects(rs[a], rs[b])
+                    del rs[a]
+                    break
+        else:
+            del rs[a]
+        a -= 1
+    return rs
+
+
+class Tracker:
+    """Stateful wrapper with the reference's host-side blob filtering. The
+    MHI/prev-frame recurrence state is kept PER STREAM (keyed by the media
+    loop's stream id); the reference's file-static `img_prev` shared across
+    instances (gstnubotracker.cpp:108) is a documented hazard fixed, not
+    reproduced. Runs on the card unless the caller asks for another
+    device; a CUDA request on a host without CUDA raises."""
+
+    def __init__(self, frame_size: tuple[int, int],
+                 config: TrackerConfig | None = None, fps: float = 30.0,
+                 device: str | torch.device = "cuda"):
+        self.device = _resolve_device(device)
+        self.config = config or TrackerConfig()
+        self.w, self.h = frame_size
+        self.fps = fps
+        self._states: dict[int, TrackerState] = {
+            0: init_state(self.h, self.w, self.device)}
+        self._frame_idx: dict[int, int] = {0: 0}
+
+    # stream-0 views keep the single-stream surface
+    @property
+    def state(self) -> TrackerState:
+        return self._states[0]
+
+    @state.setter
+    def state(self, v: TrackerState) -> None:
+        self._states[0] = v
+
+    @property
+    def frame_idx(self) -> int:
+        return self._frame_idx[0]
+
+    @frame_idx.setter
+    def frame_idx(self, v: int) -> None:
+        self._frame_idx[0] = v
+
+    def reconfigure(self, config: TrackerConfig) -> None:
+        """Apply a config delta to the live tracker; MHI recurrence state
+        and frame clocks survive (the reference mutates the running element
+        under its mutex, gst_nubo_tracker_set_property)."""
+        self.config = config
+
+    def process(self, gray_frames,
+                stream: int = 0) -> list[list[tuple[int, int, int, int]]]:
+        """Consecutive frames [N,H,W] (or [H,W]) of one stream → per-frame
+        blob lists. The frames are uploaded once and the blob slots of all
+        N frames come back to the host in one copy."""
+        gray_frames = np.asarray(gray_frames)
+        if gray_frames.ndim == 2:
+            gray_frames = gray_frames[None]
+        cfg = self.config
+        state = self._states.get(stream)
+        if state is None:
+            state = init_state(self.h, self.w, self.device)
+            self._frame_idx[stream] = 0
+        idx = self._frame_idx[stream]
+        frames = _as_uint8(gray_frames, self.device)
+        all_rects, all_valid = [], []
+        for fr in frames:
+            ts = idx / self.fps
+            state, rects, valid, _, _ = tracker_step(
+                state, fr, ts,
+                threshold=cfg.threshold, mhi_duration=cfg.mhi_duration,
+                seg_thresh=cfg.seg_thresh, max_blobs=cfg.max_blobs)
+            all_rects.append(rects)
+            all_valid.append(valid)
+            idx += 1
+        rects = torch.stack(all_rects).cpu().numpy()
+        valid = torch.stack(all_valid).cpu().numpy()
+        self._states[stream] = state
+        self._frame_idx[stream] = idx
+        return [join_objects(r[v], cfg.min_area, cfg.max_area, cfg.distance)
+                for r, v in zip(rects, valid)]

@@ -1,11 +1,13 @@
-"""Deterministic synthetic gray frames with cartoon faces, drawn with numpy
-masks only (no OpenCV), so a host without cv2 can make frames that the real
-``haarcascade_frontalface_alt.xml`` fires on.
+"""Deterministic synthetic gray frames drawn with numpy masks only (no
+OpenCV), so a host without cv2 can make frames the port's cascades fire
+on: cartoon frontal faces for the real ``haarcascade_frontalface_alt.xml``,
+cartoon profile heads for the bundled synthetic profile and ear cascades
+(``profile_scene``), and moving blobs for the tracker (``blob_clip``).
 
-The drawing follows the shapes of the JAX package's test fixture (filled
-ellipses for face, brows, eyes and mouth, a bar for the nose); pixel edges
-differ from cv2's polygon fill, which does not matter for what these frames
-are for: non-vacuous detection and tracking runs.
+The drawing follows the shapes of the JAX package's fixtures
+(``tests/fixtures.py``, ``models/synth.draw_profile_face``); pixel edges
+differ from cv2's polygon and ellipse fill, which does not matter for what
+these frames are for: non-vacuous detection and tracking runs.
 """
 
 from __future__ import annotations
@@ -79,4 +81,138 @@ def face_clip(n_frames: int = 8, w: int = 640, h: int = 480,
                    noise=5, seed=seed + t)
         for t in range(n_frames)
     ]
+    return np.stack(frames)
+
+
+def _fill_ring(img: np.ndarray, cx: int, cy: int, ax: int, ay: int,
+               thickness: int, value: int) -> None:
+    """Draw the outline of the axis-aligned ellipse (ax, ay), `thickness`
+    px wide and centred on the contour, in place."""
+    ax, ay = max(ax, 1), max(ay, 1)
+    half = thickness / 2.0
+    ox, oy = ax + half, ay + half
+    ix, iy = ax - half, ay - half
+    h, w = img.shape
+    y0, y1 = max(cy - int(oy) - 1, 0), min(cy + int(oy) + 2, h)
+    x0, x1 = max(cx - int(ox) - 1, 0), min(cx + int(ox) + 2, w)
+    if y0 >= y1 or x0 >= x1:
+        return
+    yy, xx = np.mgrid[y0:y1, x0:x1]
+    dx, dy = xx - cx, yy - cy
+    outer = (dx / ox) ** 2 + (dy / oy) ** 2 <= 1.0
+    inner = ((ix > 0) & (iy > 0)
+             & ((dx / max(ix, 1e-9)) ** 2 + (dy / max(iy, 1e-9)) ** 2 < 1.0))
+    img[y0:y1, x0:x1][outer & ~inner] = value
+
+
+def _fill_triangle(img: np.ndarray, pts, value: int) -> None:
+    """Fill the triangle with integer corners `pts` [(x, y)] * 3 in place
+    (edges included)."""
+    (xa, ya), (xb, yb), (xc, yc) = pts
+    h, w = img.shape
+    y0, y1 = max(min(ya, yb, yc), 0), min(max(ya, yb, yc) + 1, h)
+    x0, x1 = max(min(xa, xb, xc), 0), min(max(xa, xb, xc) + 1, w)
+    if y0 >= y1 or x0 >= x1:
+        return
+    yy, xx = np.mgrid[y0:y1, x0:x1]
+
+    def side(px, py, qx, qy):
+        return (qx - px) * (yy - py) - (qy - py) * (xx - px)
+
+    s = (side(xa, ya, xb, yb), side(xb, yb, xc, yc), side(xc, yc, xa, ya))
+    inside = (((s[0] >= 0) & (s[1] >= 0) & (s[2] >= 0))
+              | ((s[0] <= 0) & (s[1] <= 0) & (s[2] <= 0)))
+    img[y0:y1, x0:x1][inside] = value
+
+
+def _fill_segment(img: np.ndarray, p, q, thickness: int, value: int) -> None:
+    """Draw the segment p-q `thickness` px wide (round ends) in place."""
+    (px, py), (qx, qy) = p, q
+    r = max(thickness, 1) / 2.0
+    h, w = img.shape
+    y0 = max(int(min(py, qy) - r) - 1, 0)
+    y1 = min(int(max(py, qy) + r) + 2, h)
+    x0 = max(int(min(px, qx) - r) - 1, 0)
+    x1 = min(int(max(px, qx) + r) + 2, w)
+    if y0 >= y1 or x0 >= x1:
+        return
+    yy, xx = np.mgrid[y0:y1, x0:x1]
+    vx, vy = qx - px, qy - py
+    t = np.clip(((xx - px) * vx + (yy - py) * vy) / max(vx * vx + vy * vy, 1),
+                0.0, 1.0)
+    d2 = (xx - px - t * vx) ** 2 + (yy - py - t * vy) ** 2
+    img[y0:y1, x0:x1][d2 <= r * r] = value
+
+
+def draw_profile_face(img: np.ndarray, cx: int, cy: int, s: int,
+                      skin: int = 205, hair: int = 60) -> None:
+    """Draw a left-facing cartoon profile head of "radius" s with a
+    pronounced ear, in the shapes of the JAX package's
+    ``models/synth.draw_profile_face`` (head, hair cap, nose, eye, brow,
+    mouth, a C-shaped ear with an inner shadow)."""
+    _fill_ellipse(img, cx, cy, int(0.72 * s), s, skin)
+    fx = cx - int(0.72 * s)                                  # facing left
+    _fill_ellipse(img, cx + int(0.25 * s), cy - int(0.25 * s),
+                  int(0.6 * s), int(0.85 * s), hair)          # hair cap
+    _fill_ellipse(img, cx - int(0.05 * s), cy + int(0.1 * s),
+                  int(0.6 * s), int(0.78 * s), skin)
+    _fill_triangle(img, [(fx + int(0.02 * s), cy - int(0.08 * s)),
+                         (fx - int(0.17 * s), cy + int(0.12 * s)),
+                         (fx + int(0.02 * s), cy + int(0.2 * s))],
+                   skin)                                      # nose
+    ex2, ey2 = fx + int(0.28 * s), cy - int(0.24 * s)
+    _fill_ellipse(img, ex2, ey2 - int(0.13 * s), int(0.16 * s),
+                  int(0.05 * s), 90)                          # brow
+    _fill_ellipse(img, ex2, ey2, int(0.1 * s), int(0.07 * s), 35)   # eye
+    _fill_segment(img, (fx + int(0.02 * s), cy + int(0.42 * s)),
+                  (fx + int(0.26 * s), cy + int(0.44 * s)), max(1, s // 14),
+                  70)                                         # mouth
+    eax, eay = cx + int(0.3 * s), cy + int(0.06 * s)
+    ew, eh = int(0.13 * s), int(0.22 * s)
+    _fill_ellipse(img, eax, eay, ew, eh, skin)                # ear
+    _fill_ring(img, eax, eay, ew, eh, max(2, s // 18), 95)
+    _fill_ellipse(img, eax + ew // 3, eay, ew // 2, eh // 2, 130)
+    _fill_ellipse(img, eax + ew // 3, eay + eh // 4, max(1, s // 24),
+                  max(1, s // 24), 80)
+
+
+def profile_scene(w: int = 640, h: int = 480,
+                  heads=((180, 240, 120, "left"), (460, 240, 120, "right")),
+                  noise: int = 6, seed: int = 0, bg: int = 150) -> np.ndarray:
+    """Gray uint8 [h, w] frame with cartoon profile heads at
+    (cx, cy, s, facing); a right-facing head is the mirror image of a
+    left-facing one, which the ear detector finds in its flipped pass."""
+    rng = np.random.RandomState(seed)
+    img = np.full((h, w), bg, np.uint8)
+    if noise:
+        img = (img.astype(np.int16)
+               + rng.randint(-noise, noise + 1, img.shape)
+               ).clip(0, 255).astype(np.uint8)
+    for cx, cy, s, facing in heads:
+        if facing == "left":
+            draw_profile_face(img, int(cx), int(cy), int(s))
+        else:
+            draw_profile_face(img[:, ::-1], w - 1 - int(cx), int(cy), int(s))
+    return img
+
+
+def blob_clip(n_frames: int = 12, w: int = 320, h: int = 240,
+              seed: int = 3) -> np.ndarray:
+    """[n_frames, h, w] uint8: a bright disc and a dark box moving over
+    static noise, in the layout of the JAX package's tracker fixture scaled
+    from 320x240 to w x h; the motion turns back every 24 frames, so that
+    any number of frames stays inside the frame."""
+    rng = np.random.RandomState(seed)
+    bg = rng.randint(60, 80, (h, w)).astype(np.uint8)
+    kx, ky = w / 320.0, h / 240.0
+    r = int(14 * min(kx, ky))
+    frames = []
+    for t in range(n_frames):
+        p = 24 - abs(t % 48 - 24)
+        img = bg.copy()
+        _fill_ellipse(img, int((40 + 9 * p) * kx), int((60 + 4 * p) * ky),
+                      r, r, 220)
+        _fill_box(img, int((250 - 7 * p) * kx), int(160 * ky),
+                  int((280 - 7 * p) * kx), int(200 * ky), 25)
+        frames.append(img)
     return np.stack(frames)

@@ -3,8 +3,9 @@ dense kernel, its bands on the levels the row-strip kernel took before
 included, the tilted kernels of the level dense phase, the tilted-table
 kernel, the integral-tables kernel, the int8 quantizers) against its plain
 PyTorch
-version on the card, and the face, part and learned detectors on CUDA
-against the port's CPU run.
+version on the card, and the face, part, ear and learned detectors, the
+motion tracker and the drawing ops on CUDA against the port's CPU run (the
+drawing also against its numpy twins).
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. On a
 GPU host without JAX, run them with
@@ -23,11 +24,14 @@ import numpy as np
 import pytest
 import torch
 
+from nubomedia_vca_tpu_torch.api.render import render_detections
 from nubomedia_vca_tpu_torch.cascade.engine import CascadeEngine, load_cascade
 from nubomedia_vca_tpu_torch.cascade.paths import PKG_ASSETS_DIR
-from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EyeDetector,
+from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EarDetector,
+                                            EarDetectorConfig, EyeDetector,
                                             MouthDetector, NoseDetector,
                                             QuantizedCnnFaceDetector)
+from nubomedia_vca_tpu_torch.models import tracker
 from nubomedia_vca_tpu_torch.models.face import (DEFAULT_FACE_CASCADE,
                                                  FaceDetector)
 from nubomedia_vca_tpu_torch.ops import quant
@@ -36,7 +40,8 @@ from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
 from nubomedia_vca_tpu_torch.ops.integral import tilted_integral_image
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
-from nubomedia_vca_tpu_torch.utils.synth import face_clip, face_scene
+from nubomedia_vca_tpu_torch.utils.synth import (blob_clip, face_clip,
+                                                 face_scene, profile_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -404,3 +409,110 @@ def test_bf16_detector_cuda_matches_cpu(cuda_device):
     assert float(err.max()) <= 0.0625
     for g, w in zip(gpu.detect_boxes(clip), cpu.detect_boxes(clip)):
         assert np.array_equal(g, w)
+
+
+EAR_PAIRINGS = {
+    "default": None,
+    "real_profile": os.path.join(PKG_ASSETS_DIR,
+                                 "haarcascade_profileface.xml"),
+}
+
+
+def _ear_clip(n):
+    return np.stack([profile_scene(
+        1280, 720, heads=((340 + 2 * t, 360, 160, "left"),
+                          (940 - 2 * t, 360, 160, "right")), seed=t)
+        for t in range(n)])
+
+
+@pytest.mark.parametrize("pairing", sorted(EAR_PAIRINGS))
+def test_ear_pyramid_plans_equal_plain_version(cuda_device, pairing):
+    """The pyramid kernel on both of the ear's plans (profile faces at
+    160x90; ears at 320x180 with four wide levels) over the [normal,
+    flipped] batch, exactly."""
+    det = EarDetector((1280, 720), EarDetectorConfig(
+        face_cascade_path=EAR_PAIRINGS[pairing]), device=cuda_device)
+    gray = torch.from_numpy(_ear_clip(4)).to(cuda_device)
+    both = torch.cat([gray, torch.flip(gray, dims=(2,))])
+    for eng in (det.face_engine, det.part_engines["ear"]):
+        work = equalize_hist(resize_linear_exact(both, (eng.image_w,
+                                                        eng.image_h)))
+        got = dense_cuda.pyramid_dense_phase(work, eng._plan)
+        want = dense_cuda.pyramid_dense_phase_reference(work, eng._plan)
+        torch.cuda.synchronize()
+        _levels_equal(got, want)
+    assert det.part_engines["ear"]._plan.n_wide == 4
+
+
+@pytest.mark.parametrize("pairing", sorted(EAR_PAIRINGS))
+def test_ear_detector_cuda_equals_cpu(cuda_device, pairing):
+    """Per-frame outputs over two batches of one stream and the device
+    pass's raw results on both halves of the flipped batch equal the CPU
+    run's; the pyramid kernel launches twice per batch."""
+    clip = _ear_clip(8)
+    cfg = lambda: EarDetectorConfig(face_cascade_path=EAR_PAIRINGS[pairing])
+    gpu = EarDetector((1280, 720), cfg(), device=cuda_device)
+    cpu = EarDetector((1280, 720), cfg(), device="cpu")
+    dense_cuda.pyramid_dense_phase.launches = 0
+    for b in (clip[:4], clip[4:]):
+        out = gpu.process(b)
+        assert out == cpu.process(b)
+    assert dense_cuda.pyramid_dense_phase.launches == 4
+    (f_g, p_g), (f_c, p_c) = gpu._device_pass(clip[:4]), cpu._device_pass(
+        clip[:4])
+    for g, w in zip(f_g, f_c):
+        assert np.array_equal(g, w)
+    for g, w in zip(p_g["ear"], p_c["ear"]):
+        assert np.array_equal(g, w)
+    if pairing == "default":
+        assert all(r["face_profile"] and r["ear"] for r in out)
+
+
+def test_tracker_step_cuda_equals_cpu(cuda_device):
+    """Blob rects, valid, MHI and mask equal the CPU run's frame by frame;
+    the orientation within 1e-3 degrees on the mask."""
+    clip = blob_clip(8)
+    kw = dict(threshold=20, mhi_duration=0.2, seg_thresh=0.05, max_blobs=32)
+    st_g = tracker.init_state(240, 320, cuda_device)
+    st_c = tracker.init_state(240, 320, "cpu")
+    for i, fr in enumerate(clip):
+        g = tracker.tracker_step(st_g, fr, i / 30.0, **kw)
+        c = tracker.tracker_step(st_c, fr, i / 30.0, **kw)
+        for a, b in zip(g[1:4], c[1:4]):
+            assert torch.equal(a.cpu(), b), i
+        assert torch.equal(g[0].mhi.cpu(), c[0].mhi)
+        m = c[3]
+        if m.any():
+            assert float((g[4].cpu() - c[4]).abs()[m].max()) <= 1e-3
+        st_g, st_c = g[0], c[0]
+    assert int(c[2].sum()) > 0
+    gpu = tracker.Tracker((320, 240), device=cuda_device)
+    cpu = tracker.Tracker((320, 240), device="cpu")
+    assert gpu.process(clip) == cpu.process(clip)
+
+
+@pytest.mark.parametrize("mode", ["rect", "circle", "overlay"])
+def test_drawing_cuda_equals_twin(cuda_device, mode):
+    """Rect and circle on the card equal the numpy twins; the blend equals
+    the port's CPU run exactly and the twin within 1."""
+    rng = np.random.RandomState(9)
+    gray = face_clip(4, 640, 480, seed=3)
+    bgr = np.stack([gray, 255 - gray, gray // 2 + 64], -1)
+    rects = [[(int(rng.randint(-40, 640)), int(rng.randint(-40, 480)),
+               int(rng.randint(0, 300)), int(rng.randint(0, 200)))
+              for _ in range(6)] for _ in range(4)]
+    kw = dict(mode=mode, color=(0, 0, 255))
+    if mode == "overlay":
+        overlay = rng.randint(0, 256, (32, 24, 4)).astype(np.uint8)
+        overlay[..., 3] = rng.randint(1, 255, (32, 24))
+        kw["overlay"] = (overlay, (0.1, -0.2, 1.3, 0.9))
+    got = render_detections(bgr, rects, device=cuda_device, **kw)
+    assert got.device.type == "cuda"
+    got = got.cpu().numpy()
+    host = render_detections(bgr, rects, host=True, **kw)
+    if mode == "overlay":
+        cpu = render_detections(bgr, rects, device="cpu", **kw).numpy()
+        assert np.array_equal(got, cpu)
+        assert np.abs(got.astype(np.int16) - host).max() <= 1
+    else:
+        assert np.array_equal(got, host)

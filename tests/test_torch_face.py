@@ -20,10 +20,13 @@ from nubomedia_vca_tpu.models.face import FaceDetector as JaxFaceDetector
 from nubomedia_vca_tpu.models.face import (FaceDetectorConfig as
                                            JaxFaceDetectorConfig)
 from nubomedia_vca_tpu_torch.models.base import bucket_pad
-from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EyeDetector,
-                                           FaceDetector, FaceDetectorConfig,
-                                           MouthDetector, NoseDetector,
-                                           QuantizedCnnFaceDetector)
+from nubomedia_vca_tpu_torch.api.render import render_detections
+from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EarDetector,
+                                           EyeDetector, FaceDetector,
+                                           FaceDetectorConfig, MouthDetector,
+                                           NoseDetector,
+                                           QuantizedCnnFaceDetector, Tracker)
+from nubomedia_vca_tpu_torch.models.tracker import TrackerState, init_state
 from nubomedia_vca_tpu_torch.utils.synth import face_clip
 
 torch.set_num_threads(2)
@@ -108,6 +111,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "assert 'nubomedia_vca_tpu_torch.models.quant' in names, names\n"
         "assert 'nubomedia_vca_tpu_torch.ops.cuda.quant_cuda' in names\n"
+        "for mod in ('models.ear', 'models.tracker', 'api.render'):\n"
+        "    assert 'nubomedia_vca_tpu_torch.' + mod in names, mod\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nubomedia_vca_tpu')]\n"
         "assert not bad, bad\n"
@@ -126,10 +131,40 @@ def test_cuda_request_raises_without_cuda():
         FaceDetector((1280, 720), device="cuda")
 
 
+@pytest.mark.parametrize("make", [
+    lambda: EarDetector((1280, 720), device="cuda"),
+    lambda: Tracker((1280, 720), device="cuda"),
+    lambda: init_state(720, 1280, device="cuda"),
+    lambda: render_detections(np.zeros((1, 4, 4), np.uint8), [[]],
+                              device="cuda"),
+], ids=["ear", "tracker", "init_state", "render"])
+def test_cuda_request_raises_without_cuda_for_slice_entry_points(make):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: init_state(720, 1280),
+    lambda: TrackerState.from_numpy(np.zeros((2, 2), np.uint8),
+                                    np.zeros((2, 2), np.float32), True),
+    lambda: render_detections(np.zeros((1, 4, 4), np.uint8), [[]]),
+], ids=["init_state", "from_numpy", "render"])
+def test_tracker_state_and_render_default_to_cuda(make):
+    """Without a device argument the tracker's state and rendering of
+    numpy frames go to the card: on a host without CUDA they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make()
+
+
 @pytest.mark.parametrize("detector", [FaceDetector, NoseDetector,
                                       MouthDetector, EyeDetector,
                                       CnnFaceDetector,
-                                      QuantizedCnnFaceDetector])
+                                      QuantizedCnnFaceDetector, EarDetector,
+                                      Tracker])
 def test_entry_points_default_to_cuda(detector):
     """Without a device argument every detector runs on the card: on a host
     without CUDA it raises instead of running on the CPU."""
