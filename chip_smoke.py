@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: the face
 path, the part chain (nose, mouth, eyes), the ear detector, the learned
-face detector (int8 and bf16), the motion tracker and the drawing ops.
+face detector (int8 and bf16), the motion tracker, the drawing ops and the
+serving plane (JSON-RPC server, media loop, native ingest).
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
 Phases, each printing its findings, any failure ending the run non-zero:
 
 1. device check: CUDA present; card name and power limit; torch/CUDA;
-2. build: compile the four CUDA sources with nvcc, one process each, all
-   started together (ptxas registers, spills and shared memory per kernel);
+2. build: compile the four CUDA sources with nvcc, one process each, and
+   the native ingest with g++, all started together (ptxas registers,
+   spills and shared memory per kernel);
 3. kernels vs plain versions, exactly, on the same CUDA tensors:
    the pyramid dense kernel on B=64 synthetic 1280x720 (and 640x480) face
    work images and noise (level images, vnf, alive), and on the nose's
@@ -66,6 +68,26 @@ Phases, each printing its findings, any failure ending the run non-zero:
    the numpy twins (``host=True``): rect and circle exactly, the blend
    within 1 (the twin divides by 255 and fuses no multiply-add) and
    exactly the port's CPU blend on its first frames;
+10. serving (run before the times): ``VcaRpcServer(port=0,
+    frame_size=(1280, 720))`` on the card, driven by the generated
+    ``clients/python`` client, serves two pipelines at once, each fed 96
+    720p frames from ``utils/synth.face_clip`` over TCP, paced to at most
+    32 in flight: A, ``NuboTracker`` → ``NuboFaceDetector`` →
+    ``NuboEyeDetector(detectByEvent=1)`` with ``listen(channels=3,
+    output=1)`` (BGR in, annotated BGR read back), and B,
+    ``NuboCnnFaceDetector`` (``setQuantized(1)``) + ``NuboCnnPartDetector``
+    with ``listen(channels=1, downscale=1)``. Each pipeline must process
+    every frame it was sent and drop none, send OnFace over RPC at least
+    once and use the native ingest; no element may raise inside the loop
+    (each element's ``process`` and ``render`` are wrapped on the
+    instance to record it); the pyramid, tilted, integral and int8
+    kernels must launch; A's annotated frames must equal the same element
+    chain called directly on the card (``MediaRunner._step``) in the
+    loop's batches. It prints frames/s per pipeline over TCP, ms per loop
+    step, each pipeline's ``stats()`` and the host ms of each element
+    call; then each pipeline serves its first 48 frames alone, timed the
+    same way, and A's tracker scans the served frames alone (device ms and
+    label-propagation iterations per frame);
 9. times (CUDA events, kernel and plain version in turns): each kernel at
    the main paths' shapes with its plain version, its bound from the
    shapes and this run's data, and a PyTorch call computing the same
@@ -95,19 +117,26 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
+import threading
 import time
+import traceback
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
+from nubomedia_vca_tpu_torch.api import (  # noqa: E402
+    media_loop, objects, rpc)
 from nubomedia_vca_tpu_torch.api.render import (  # noqa: E402
     render_detections)
 from nubomedia_vca_tpu_torch.cascade.engine import get_engine  # noqa: E402
 from nubomedia_vca_tpu_torch.cascade.paths import find_cascade  # noqa: E402
+from nubomedia_vca_tpu_torch.cpp import ingest_binding  # noqa: E402
 from nubomedia_vca_tpu_torch.models import (  # noqa: E402
     CnnFaceDetector, EarDetector, EarDetectorConfig, EyeDetector,
     FaceDetector, MouthDetector, NoseDetector, QuantizedCnnFaceDetector,
@@ -116,6 +145,7 @@ from nubomedia_vca_tpu_torch.models import tracker  # noqa: E402
 from nubomedia_vca_tpu_torch.models.face import (  # noqa: E402
     DEFAULT_FACE_CASCADE)
 from nubomedia_vca_tpu_torch.ops import quant  # noqa: E402
+from nubomedia_vca_tpu_torch.ops.color import bgr_to_gray  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.cuda import (  # noqa: E402
     _build, dense_cuda, dense_level_cuda, integral_cuda, quant_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
@@ -137,6 +167,12 @@ TRACKER_FRAMES = 64    # frames of the tracker's timed run
 TRACKER_CPU_FRAMES = 8  # consecutive frames held against the CPU run
 ORIENT_ATOL = 1e-3     # motion orientation, degrees (tests/test_torch_tracker)
 REAL_PROFILE = "haarcascade_profileface.xml"
+SERVE_FRAMES = 96      # paced 720p frames per pipeline over TCP, phase 10
+SERVE_WINDOW = 32      # frames in flight at most: the ingest holds 64
+SERVE_TIMEOUT = 300.0  # seconds a serving stream may take
+SERVE_SOLO = 48        # frames each pipeline then serves alone
+SERVE_LISTEN = {"A": {"channels": 3, "output": 1},
+                "B": {"channels": 1, "downscale": 1}}
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the
 # float32 rate outside the tensor cores, which the dense kernels' integer
 # adds and float32 compares run at
@@ -280,8 +316,12 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ phases
 def build_all() -> None:
     names = ("pyramid_dense", "dense_level", "integral_tables", "quant_int8")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
+        ingest = ex.submit(ingest_binding.build_library)
+        t0 = time.perf_counter()
         results = list(ex.map(_build.build_library, names))
+        print(f"build: {ingest.result().name} (g++, the native ingest) by "
+              f"{time.perf_counter() - t0:.2f} s")
     for name, (path, log, seconds) in zip(names, results):
         print(f"build: {path.name} in {seconds:.2f} s")
         for line in log.splitlines():
@@ -1144,6 +1184,292 @@ def level_images(part, eng) -> dict[int, torch.Tensor]:
             for li, l in enumerate(eng.levels)}
 
 
+# ------------------------------------------------------------------ serving
+def _trap(fn, errors: list, seconds: list, calls: list | None = None):
+    """`fn` recording every exception it raises (the media loop catches and
+    prints an element's exception and goes on), the host seconds of each
+    call and, with `calls`, the batch size of each call."""
+    def wrapped(frames, *args, **kwargs):
+        if calls is not None:
+            calls.append(len(frames))
+        t0 = time.perf_counter()
+        try:
+            return fn(frames, *args, **kwargs)
+        except Exception:
+            errors.append(traceback.format_exc())
+            raise
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    return wrapped
+
+
+def _timed(fn, steps: list):
+    def wrapped(frames, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(frames, *args, **kwargs)
+        finally:
+            steps.append((len(frames), time.perf_counter() - t0))
+    return wrapped
+
+
+def _color(gray: np.ndarray) -> np.ndarray:
+    """BGR frames whose luma keeps the gray frames' faces."""
+    return np.stack([gray, np.clip(gray.astype(np.int32) + 12, 0, 255),
+                     np.clip(gray.astype(np.int32) - 15, 0, 255)],
+                    -1).astype(np.uint8)
+
+
+class _Stream:
+    """One TCP stream of raw frames into a pipeline's media port, paced so
+    that at most SERVE_WINDOW frames are in flight (sent and not yet
+    processed, asked over RPC), with an optional reader of the annotated
+    frames written back on the same connection."""
+
+    def __init__(self, cli, pipe_id: str, port: int, frames: np.ndarray,
+                 read_back: bool):
+        self.cli, self.pipe_id, self.frames = cli, pipe_id, frames
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        self.back = bytearray()
+        self.want_back = frames.nbytes if read_back else 0
+        self.error: list[str] = []
+        self.t_first = self.t_done = self.t_read = 0.0
+        # daemon threads: a stream that hangs must not keep a failed run
+        # from exiting
+        self.threads = [threading.Thread(target=self._send, daemon=True)]
+        if read_back:
+            self.threads.append(threading.Thread(target=self._read,
+                                                 daemon=True))
+        for t in self.threads:
+            t.start()
+
+    def processed(self) -> int:
+        return self.cli.call("invoke", {
+            "object": self.pipe_id, "operation": "framesProcessed",
+            "operationParams": {}})["value"]
+
+    def _send(self) -> None:
+        try:
+            self.t_first = time.perf_counter()
+            for i, fr in enumerate(self.frames):
+                while i - self.processed() >= SERVE_WINDOW:
+                    time.sleep(0.005)
+                self.sock.sendall(fr.tobytes())
+            while self.processed() < len(self.frames):
+                time.sleep(0.005)
+            self.t_done = time.perf_counter()
+        except Exception:      # reported by join()
+            self.error.append(traceback.format_exc())
+
+    def _read(self) -> None:
+        try:
+            while len(self.back) < self.want_back:
+                chunk = self.sock.recv(1 << 22)
+                if not chunk:
+                    break
+                self.back.extend(chunk)
+            self.t_read = time.perf_counter()
+        except Exception:
+            self.error.append(traceback.format_exc())
+
+    def join(self) -> float:
+        """Wait for both ends → seconds from the first frame sent to the
+        last frame processed (and read back)."""
+        for t in self.threads:
+            t.join(SERVE_TIMEOUT)
+        self.sock.close()
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError("serving: a stream did not finish")
+        if self.error:
+            raise AssertionError("serving stream failed:\n"
+                                 + "\n".join(self.error))
+        if len(self.back) != self.want_back:
+            raise AssertionError(f"serving: read back {len(self.back)} of "
+                                 f"{self.want_back} bytes")
+        return max(self.t_done, self.t_read) - self.t_first
+
+
+def serving_path(dev, gpu) -> dict[str, int]:
+    """Phase 10: a ``VcaRpcServer`` on the card, driven by the generated
+    Python client, serving two pipelines of 1280x720 streams at once."""
+    sys.path.insert(0, os.path.join(ROOT, "clients", "python"))
+    import nubomedia_vca_client as gen
+
+    if ingest_binding._load() is None:
+        raise AssertionError("serving: the native ingest did not build")
+    gray = face_clip(SERVE_FRAMES, *FRAME, seed=5)
+    bgr = _color(gray)
+    srv = rpc.VcaRpcServer(port=0, frame_size=FRAME).start()
+    if srv.device != dev:
+        raise AssertionError(f"serving: the server runs on {srv.device}")
+    cli = gen.KurentoClient("127.0.0.1", srv.port)
+    errors: list[str] = []
+    events: dict[str, list] = {"A": [], "B": [], "B parts": []}
+    steps: dict[str, list] = {"A": [], "B": []}
+    a_calls: list[int] = []
+    el_secs: dict[str, list] = {}
+
+    def invoke(oid, op, **params):
+        return cli.call("invoke", {"object": oid, "operation": op,
+                                   "operationParams": params},
+                        timeout=600)["value"]
+
+    def listen(name, pipe_id, step_times) -> int:
+        """Open pipeline `name`'s media port; its loop steps are timed."""
+        port = invoke(pipe_id, "listen", port=0, **SERVE_LISTEN[name])
+        runner = srv.objects[pipe_id]._runner
+        if type(runner.ingest).__name__ != "NativeIngest":
+            raise AssertionError(f"serving {name}: ingest is "
+                                 f"{type(runner.ingest).__name__}")
+        runner._step = _timed(runner._step, step_times)
+        return port
+
+    try:
+        # A: tracker → face → event-gated eye, annotated BGR frames back
+        pa = cli.create_pipeline()
+        tracker_el = pa.createNuboTracker()
+        face = pa.createNuboFaceDetector()
+        eye = pa.createNuboEyeDetector()
+        eye.detectByEvent(1)
+        face.activateServerEvents(1, 1)
+        face.onFace(events["A"].append)
+        # B: int8 learned faces + learned parts on work-res luma
+        pb = cli.create_pipeline()
+        cnn = pb.createNuboCnnFaceDetector()
+        cnn.setQuantized(1)
+        parts = pb.createNuboCnnPartDetector()
+        cnn.activateServerEvents(1, 1)
+        cnn.onFace(events["B"].append)
+        parts.activateServerEvents(1, 1)
+        parts.onPart(events["B parts"].append)
+        for oid in (tracker_el.id, face.id, eye.id, cnn.id, parts.id):
+            el = srv.objects[oid]
+            calls = a_calls if oid == tracker_el.id else None
+            name = type(el).__name__
+            el.process = _trap(el.process, errors,
+                               el_secs.setdefault(f"{name}.process", []),
+                               calls)
+            el.render = _trap(el.render, errors,
+                              el_secs.setdefault(f"{name}.render", []))
+        reset_counts()
+        port_a = listen("A", pa.id, steps["A"])
+        port_b = listen("B", pb.id, steps["B"])
+        sa = _Stream(cli, pa.id, port_a, bgr, read_back=True)
+        sb = _Stream(cli, pb.id, port_b, gray, read_back=False)
+        secs = {"A": sa.join(), "B": sb.join()}
+        torch.cuda.synchronize()
+        stats = {"A": invoke(pa.id, "getStats"), "B": invoke(pb.id,
+                                                             "getStats")}
+        counts = read_counts()
+        for p in (pa, pb):
+            invoke(p.id, "stopMedia")
+        a_batches = list(a_calls)
+        el_report = {k: list(v) for k, v in el_secs.items()}
+        # then each pipeline alone, on its first SERVE_SOLO frames
+        solo = {}
+        for name, p, frames in (("A", pa, bgr[:SERVE_SOLO]),
+                                ("B", pb, gray[:SERVE_SOLO])):
+            solo_steps: list = []
+            port = listen(name, p.id, solo_steps)
+            solo[name] = (_Stream(cli, p.id, port, frames,
+                                  read_back=name == "A").join(), solo_steps)
+            invoke(p.id, "stopMedia")
+    finally:
+        cli.close()
+        srv.stop()
+    for name, what in (("A", "tracker -> face -> eye(detectByEvent), "
+                        "listen(channels=3, output=1)"),
+                       ("B", "int8 CNN face + CNN parts, "
+                        "listen(channels=1, downscale=1)")):
+        st, ms = stats[name], [s * 1000.0 for _, s in steps[name]]
+        sizes = [n for n, _ in steps[name]]
+        print(f"serving {name} ({what}): {SERVE_FRAMES} paced "
+              f"{FRAME[0]}x{FRAME[1]} frames over TCP in {secs[name]:.3f} s, "
+              f"{SERVE_FRAMES / secs[name]:.1f} frames/s; {len(ms)} loop "
+              f"steps of {min(sizes)}-{max(sizes)} frames, mean "
+              f"{np.mean(ms):.3f} ms, median {np.median(ms):.3f} ms, max "
+              f"{max(ms):.3f} ms per step; stats {json.dumps(st)} [{gpu}]")
+        alone, alone_steps = solo[name]
+        ams = [s * 1000.0 for _, s in alone_steps]
+        print(f"serving {name} alone: {SERVE_SOLO} paced frames in "
+              f"{alone:.3f} s, {SERVE_SOLO / alone:.1f} frames/s; "
+              f"{len(ams)} loop steps, mean {np.mean(ams):.3f} ms, median "
+              f"{np.median(ams):.3f} ms per step [{gpu}]")
+        if st["framesProcessed"] + st["dropped"] != SERVE_FRAMES \
+                or st["dropped"]:
+            raise AssertionError(f"serving {name}: frames lost: {st}")
+    print("serving: host ms per loop step by element call (mean, median; "
+          "both loops and the pacing RPCs share one interpreter): "
+          + "; ".join(f"{k} {1000 * np.mean(v):.3f}, "
+                      f"{1000 * np.median(v):.3f}"
+                      for k, v in el_report.items() if v) + f" [{gpu}]")
+    if stats["A"]["framesSent"] != SERVE_FRAMES or stats["A"]["outDropped"]:
+        raise AssertionError(f"serving A: annotated frames lost: "
+                             f"{stats['A']}")
+    if stats["B"]["downscale"] != [320, 320 * FRAME[1] // FRAME[0]]:
+        raise AssertionError(f"serving B: downscale {stats['B']}")
+    if errors:
+        raise AssertionError("serving: an element raised inside the "
+                             "loop:\n" + "\n".join(errors))
+    print(f"serving events over RPC: A OnFace {len(events['A'])}, B OnFace "
+          f"{len(events['B'])}, B OnPart {len(events['B parts'])}; launches "
+          f"{counts}")
+    if not events["A"] or not events["B"]:
+        raise AssertionError("serving: no OnFace event on a pipeline")
+    missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH
+               and k != "pyramid_dense_phase_wide"]
+    if missing:
+        raise AssertionError(f"serving: kernels never launched: {missing}")
+    # A's annotated frames against the same chain called directly on the
+    # card, in the loop's batches
+    pipe = objects.MediaPipeline(FRAME, device=dev)
+    objects.NuboTracker(pipe)
+    objects.NuboFaceDetector(pipe)
+    objects.NuboEyeDetector(pipe).detectByEvent(1)
+    runner = media_loop.MediaRunner(pipe)
+    direct: list[np.ndarray] = []
+    runner.on_annotated = lambda out, stream: direct.append(out)
+    bgr_dev = torch.from_numpy(bgr).to(dev)
+    luma = bgr_to_gray(bgr_dev).cpu().numpy()
+    i = 0
+    for n in a_batches:
+        runner._step(luma[i:i + n], stream=0, color=bgr[i:i + n])
+        i += n
+    pipe.release()
+    got = np.frombuffer(bytes(sa.back), np.uint8).reshape(bgr.shape)
+    want = np.concatenate(direct)
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"serving A: annotated frames differ from the direct chain in "
+            f"{int((got != want).any(-1).sum())} pixels")
+    drawn = int((got != bgr).any(-1).sum())
+    if drawn == 0:
+        raise AssertionError("serving A: nothing drawn on the frames")
+    print(f"serving A: {SERVE_FRAMES} annotated frames read back == the "
+          f"chain called directly on the card in the loop's {len(a_batches)} "
+          f"batches ({drawn} pixels drawn); native ingest on both "
+          f"pipelines, no element exception")
+    # A's tracker alone on the served frames (phase 8 times it on the blob
+    # clip): its device step and label-propagation iterations per frame
+    kw = dataclasses.asdict(tracker.TrackerConfig())
+    kw = {k: kw[k] for k in ("threshold", "mhi_duration", "seg_thresh",
+                             "max_blobs")}
+    gray_dev = torch.from_numpy(gray).to(dev)
+    iters: list[int] = []
+
+    def scan():
+        iters.clear()
+        tracker.tracker_scan(tracker.init_state(*FRAME[::-1], device=dev),
+                             gray_dev, np.arange(SERVE_FRAMES) / 30.0,
+                             iterations=iters, **kw)
+
+    ms = cuda_ms(scan, 1) / SERVE_FRAMES
+    print(f"serving: A's tracker alone on the {SERVE_FRAMES} served frames, "
+          f"device step {ms:.4f} ms per frame, label-propagation iterations "
+          f"per frame mean {np.mean(iters):.2f} max {max(iters)} [{gpu}]")
+    return counts
+
+
 def times(dev, gpu, face_eng, dets, frames_720, xs, ears,
           ear_frames) -> dict[str, dict]:
     out: dict[str, dict] = {}
@@ -1296,6 +1622,10 @@ def main() -> int:
     phase("8 tracker and drawing")
     tracker_path(dev, gpu)
     drawing_path(dev, gpu, frames[FRAME])
+
+    phase("10 serving")
+    for k, v in serving_path(dev, gpu).items():
+        launches[k] += v
 
     phase("9 times")
     t = times(dev, gpu, face_eng, dets, frames[FRAME], xs, ears,

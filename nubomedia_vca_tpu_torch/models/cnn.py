@@ -16,8 +16,10 @@ since bf16 values are exact in TF32. Sums run in another order than
 XLA's, so the forward matches the JAX package to a tolerance, not bit for
 bit (``tests/test_torch_cnn.py``). The int8 variant is ``models/quant.py``.
 
-Training (``init_params``, ``loss_fn``, ``train_step``, targets, the
-optimizer) is not ported yet. Host code is copied from the JAX package.
+``reconfigure`` changes the knobs of a live detector, as the remote
+object's setters do. Training (``init_params``, ``loss_fn``,
+``train_step``, targets, the optimizer) is not ported yet. Host code is
+copied from the JAX package.
 """
 
 from __future__ import annotations
@@ -75,6 +77,19 @@ def letterbox_params(frame_w: int, frame_h: int,
     rw = max(1, int(round(frame_w * s)))
     rh = max(1, int(round(frame_h * s)))
     return rw, rh, (work_w - rw) // 2, (work_h - rh) // 2
+
+
+def letterbox_canvas(gray: torch.Tensor, rw: int, rh: int, ox: int, oy: int,
+                     sw: int, sh: int) -> torch.Tensor:
+    """[B,H,W] uint8 frames → [B,sh,sw]: exact resize to rw×rh, placed at
+    (ox, oy), the rest of the canvas the content's edge replicated."""
+    work = resize_linear_exact(gray, (rw, rh))
+    if (rw, rh) == (sw, sh):
+        return work
+    dev = work.device
+    rows = (torch.arange(sh, device=dev) - oy).clamp(0, rh - 1)
+    cols = (torch.arange(sw, device=dev) - ox).clamp(0, rw - 1)
+    return work[:, rows][:, :, cols]
 
 
 def same_pads(size: int, stride: int, dilation: int = 1,
@@ -233,6 +248,24 @@ class CnnFaceDetector:
     def _make_model(self) -> torch.nn.Module:
         return CnnFace(self.params)
 
+    def reconfigure(self, threshold: float | None = None,
+                    multi_scale: bool | None = None,
+                    detect_event: int | None = None,
+                    process_x_every_4_frames: int | None = None) -> None:
+        """Apply knob changes to the LIVE detector (track IDs, GOP clock
+        and gate budget preserved). The forward runs eagerly, so the next
+        batch reads the new threshold and scales: there is no compiled
+        program to rebuild."""
+        if threshold is not None:
+            self.threshold = float(threshold)
+        if multi_scale is not None:
+            self.multi_scale = bool(multi_scale)
+        if detect_event is not None:
+            self.gate.enabled = bool(detect_event)
+        if process_x_every_4_frames is not None:
+            self.gop.x = int(process_x_every_4_frames)
+            self.gate.x = int(process_x_every_4_frames)
+
     def _scales(self):
         return self.MULTI_SCALES if self.multi_scale \
             else ((self.WORK_W, self.WORK_H),)
@@ -240,15 +273,9 @@ class CnnFaceDetector:
     def letterbox(self, gray: torch.Tensor, k: int = 1) -> torch.Tensor:
         """[B,H,W] uint8 frames → the k-times canvas [B,240k,320k]: exact
         resize, then edge-replicated padding around the content."""
-        sw, sh = self.WORK_W * k, self.WORK_H * k
-        rw, rh = self._rw * k, self._rh * k
-        work = resize_linear_exact(gray, (rw, rh))
-        if (rw, rh) == (sw, sh):
-            return work
-        dev = work.device
-        rows = (torch.arange(sh, device=dev) - self._oy * k).clamp(0, rh - 1)
-        cols = (torch.arange(sw, device=dev) - self._ox * k).clamp(0, rw - 1)
-        return work[:, rows][:, :, cols]
+        return letterbox_canvas(gray, self._rw * k, self._rh * k,
+                                self._ox * k, self._oy * k,
+                                self.WORK_W * k, self.WORK_H * k)
 
     @torch.no_grad()
     def detect_device(self, gray: torch.Tensor):

@@ -516,3 +516,122 @@ def test_drawing_cuda_equals_twin(cuda_device, mode):
         assert np.abs(got.astype(np.int16) - host).max() <= 1
     else:
         assert np.array_equal(got, host)
+
+
+# --------------------------------------------------------------- serving
+def _color(gray):
+    """BGR frames whose luma keeps the gray frames' faces."""
+    return np.stack([gray, np.clip(gray.astype(np.int32) + 12, 0, 255),
+                     np.clip(gray.astype(np.int32) - 15, 0, 255)],
+                    -1).astype(np.uint8)
+
+
+def test_cnn_part_detector_cuda_matches_cpu(cuda_device):
+    """The learned part detector on the card: the output within the bf16
+    tolerance of the CPU run's, every class's boxes within 2 px."""
+    from nubomedia_vca_tpu_torch.models.cnn_parts import (CLASSES,
+                                                          CnnPartDetector)
+
+    frames = np.concatenate([
+        face_clip(2, 1280, 720, seed=11),
+        np.stack([profile_scene(1280, 720, heads=(
+            (360, 360, 240, "left"), (920, 360, 240, "right")), seed=s)
+            for s in range(2)])])
+    gpu = CnnPartDetector((1280, 720), device=cuda_device)
+    cpu = CnnPartDetector((1280, 720), device="cpu")
+    canvas = cpu.letterbox(torch.from_numpy(frames))
+    err = (gpu.model(canvas.to(cuda_device)).cpu() - cpu.model(canvas)).abs()
+    assert float(err.max()) <= 0.0625
+    got, want = gpu.process(frames), cpu.process(frames)
+    for g, w in zip(got, want):
+        for k in CLASSES:
+            assert len(g[k]) == len(w[k]), k
+            for a, b in zip(g[k], w[k]):
+                assert max(abs(u - v) for u, v in zip(a, b)) <= 2, k
+    assert sum(len(r[k]) for r in got for k in CLASSES) > 0
+
+
+def test_annotated_frames_cuda_equal_cpu(cuda_device):
+    """One media-loop step (face → event-gated eye, drawn on the color
+    frames on the device) on the card equals the CPU run: the results and
+    the annotated frames."""
+    from nubomedia_vca_tpu_torch.api import media_loop, objects
+
+    gray = face_clip(4, 640, 480, seed=3)
+    bgr = _color(gray)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        pipe = objects.MediaPipeline((640, 480), device=dev)
+        objects.NuboFaceDetector(pipe)
+        eye = objects.NuboEyeDetector(pipe)
+        eye.detectByEvent(1)
+        runner = media_loop.MediaRunner(pipe)
+        frames = []
+        runner.on_annotated = lambda o, s: frames.append(o)
+        runner._step(gray, stream=0, color=bgr)
+        out[str(dev)] = frames
+        pipe.release()
+    got, want = out[str(cuda_device)], out["cpu"]
+    assert len(got) == len(want) == 1
+    assert np.array_equal(got[0], want[0])
+    assert (got[0] != bgr).any()
+
+
+def test_rpc_serving_on_card(cuda_device):
+    """The RPC server on the card (its default device), driven by the
+    generated client: annotated BGR frames read back over TCP equal the
+    element called directly on the CPU, through the pyramid kernel."""
+    import socket
+    import sys
+    import threading
+
+    from nubomedia_vca_tpu_torch.api import objects, rpc
+    from nubomedia_vca_tpu_torch.ops.color import bgr_to_gray
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "clients", "python"))
+    import nubomedia_vca_client as gen
+
+    w, h, n = 640, 480, 8
+    bgr = _color(face_clip(n, w, h, seed=2))
+    srv = rpc.VcaRpcServer(port=0, frame_size=(w, h)).start()
+    assert srv.device.type == "cuda"
+    before = dense_cuda.pyramid_dense_phase.launches
+    cli = gen.KurentoClient("127.0.0.1", srv.port)
+    try:
+        pipe = cli.create_pipeline()
+        pipe.createNuboFaceDetector()
+        port = cli.call("invoke", {
+            "object": pipe.id, "operation": "listen",
+            "operationParams": {"port": 0, "channels": 3, "output": 1}},
+            timeout=600)["value"]
+        back = bytearray()
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+            def read():
+                while len(back) < n * w * h * 3:
+                    chunk = s.recv(1 << 20)
+                    if not chunk:
+                        return
+                    back.extend(chunk)
+
+            reader = threading.Thread(target=read)
+            reader.start()
+            for fr in bgr:
+                s.sendall(fr.tobytes())
+            reader.join(600)
+        stats = cli.call("invoke", {"object": pipe.id,
+                                    "operation": "getStats"})["value"]
+        cli.call("invoke", {"object": pipe.id, "operation": "stopMedia"},
+                 timeout=600)
+    finally:
+        cli.close()
+        srv.stop()
+    assert stats["framesProcessed"] == n and stats["dropped"] == 0
+    assert dense_cuda.pyramid_dense_phase.launches > before
+    got = np.frombuffer(bytes(back), np.uint8).reshape(n, h, w, 3)
+    direct = objects.NuboFaceDetector(objects.MediaPipeline((w, h),
+                                                            device="cpu"))
+    gray = bgr_to_gray(torch.from_numpy(bgr)).numpy()
+    want = direct.render(bgr, direct.process(gray)).numpy()
+    assert np.array_equal(got, want)
+    assert (got != bgr).any()

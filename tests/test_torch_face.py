@@ -111,7 +111,10 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "assert 'nubomedia_vca_tpu_torch.models.quant' in names, names\n"
         "assert 'nubomedia_vca_tpu_torch.ops.cuda.quant_cuda' in names\n"
-        "for mod in ('models.ear', 'models.tracker', 'api.render'):\n"
+        "for mod in ('models.ear', 'models.tracker', 'api.render', "
+        "'api.rpc', 'api.media_loop', 'api.objects', 'api.idl', "
+        "'cpp.ingest_binding', 'cli', 'models.cnn_parts', "
+        "'pipeline.scheduler', 'utils.tracing'):\n"
         "    assert 'nubomedia_vca_tpu_torch.' + mod in names, mod\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nubomedia_vca_tpu')]\n"
