@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: the face
 path, the part chain (nose, mouth, eyes), the ear detector, the learned
-face detector (int8 and bf16), the motion tracker, the drawing ops and the
-serving plane (JSON-RPC server, media loop, native ingest).
+face detector (int8 and bf16), the motion tracker, the drawing ops, the
+serving plane (JSON-RPC server, media loop, native ingest) and the
+learned detectors' training path (distillation teacher, trainers,
+checkpoints).
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -88,6 +90,24 @@ Phases, each printing its findings, any failure ending the run non-zero:
     call; then each pipeline serves its first 48 frames alone, timed the
     same way, and A's tracker scans the served frames alone (device ms and
     label-propagation iterations per frame);
+11. training (run after 10, before the times): at the shipped width,
+    B=32, 320x240 on the card. The distillation teacher
+    (``distill.make_teacher``: frontalface_alt, 12 levels, 3 wide) labels
+    32 ``face_clip`` frames with one #1 launch and its wide bands, equal
+    to the CPU teacher's labels; ``distill.train`` itself (30 steps on the
+    warmup-cosine schedule, a pool of 3 labelled batches on the card,
+    ``make_scene`` replaced by the cv2-free ``synth_scene``: the card's
+    host has no cv2) with every loss finite, step 0 moving nothing and
+    step 1 the parameters, its npz served by ``CnnFaceDetector`` on the
+    card; ``cnn_parts.train`` (6 steps, C=6, ctx) on teacher-labelled
+    face-only scenes; the #1 launches counted in each run against the
+    teacher's plan; 3 face steps from the same weights and pool on the card
+    and on the host's CPU (losses within 1e-3 relative, parameters within
+    2·k·lr, median under lr / 20); the train-state round trip on the card
+    (parameters, AdamW moments and count, lr bit for bit, the next loss
+    within 1e-3); then the step's ms and images/s (CUDA events, warm), its
+    peak memory, the teacher's ms per labelled batch and #1 on the
+    teacher's levels with its plain version and bound;
 9. times (CUDA events, kernel and plain version in turns): each kernel at
    the main paths' shapes with its plain version, its bound from the
    shapes and this run's data, and a PyTorch call computing the same
@@ -120,9 +140,11 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
+from unittest import mock
 
 import numpy as np
 import torch
@@ -141,7 +163,8 @@ from nubomedia_vca_tpu_torch.models import (  # noqa: E402
     CnnFaceDetector, EarDetector, EarDetectorConfig, EyeDetector,
     FaceDetector, MouthDetector, NoseDetector, QuantizedCnnFaceDetector,
     Tracker)
-from nubomedia_vca_tpu_torch.models import tracker  # noqa: E402
+from nubomedia_vca_tpu_torch.models import (  # noqa: E402
+    cnn, cnn_parts, distill, tracker)
 from nubomedia_vca_tpu_torch.models.face import (  # noqa: E402
     DEFAULT_FACE_CASCADE)
 from nubomedia_vca_tpu_torch.ops import quant  # noqa: E402
@@ -153,8 +176,9 @@ from nubomedia_vca_tpu_torch.ops.integral import (  # noqa: E402
     tilted_from_integral, tilted_integral_image)
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
+from nubomedia_vca_tpu_torch.utils import checkpoint  # noqa: E402
 from nubomedia_vca_tpu_torch.utils.synth import (  # noqa: E402
-    blob_clip, face_clip, profile_scene)
+    blob_clip, face_clip, face_scene, profile_scene)
 
 FRAME = (1280, 720)
 BATCH = 64
@@ -173,6 +197,22 @@ SERVE_TIMEOUT = 300.0  # seconds a serving stream may take
 SERVE_SOLO = 48        # frames each pipeline then serves alone
 SERVE_LISTEN = {"A": {"channels": 3, "output": 1},
                 "B": {"channels": 1, "downscale": 1}}
+TRAIN_BATCH = 32       # frames per labelled batch and per train step
+TRAIN_STEPS = 30       # distill.train's steps on the warmup-cosine schedule
+TRAIN_POOL = 3         # labelled batches resident on the card
+TRAIN_REGEN = 10       # steps between relabelled pool entries
+TRAIN_LR = 3e-4
+PARITY_STEPS = 3       # face-trainer steps held against the card host's CPU
+# the same torch code on the card and on its host's CPU: a step's loss
+# (relative), step 0's gradient per leaf (share of the leaf's largest
+# |gradient|), and the median parameter after PARITY_STEPS steps; the max
+# is held to 2·Σ lr of the steps taken (Adam's first updates are ±lr)
+CARD_LOSS_RTOL = 1e-5
+CARD_GRAD_TOL = 2e-2
+CARD_PARAM_MEDIAN = TRAIN_LR / 1000
+PARTS_STEPS = 6        # cnn_parts.train's steps, constant lr
+PARTS_POOL = 2
+TIMED_STEPS = 20       # warm train steps timed with CUDA events
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the
 # float32 rate outside the tensor cores, which the dense kernels' integer
 # adds and float32 compares run at
@@ -330,39 +370,58 @@ def build_all() -> None:
                 print(f"  ptxas: {line.strip()}")
 
 
-def check_pyramid(dev, frames_by_size, nose) -> float:
+def pyramid_equal(work, plan, what: str) -> tuple[float, int]:
+    """The pyramid kernel's level images, vnf and alive on `work` equal
+    to its plain version's, element by element → (max |err|, alive
+    windows)."""
+    got = dense_cuda.pyramid_dense_phase(work, plan)
+    want = dense_cuda.pyramid_dense_phase_reference(work, plan)
+    torch.cuda.synchronize()
+    err = 0.0
+    for li, (g, w) in enumerate(zip(got, want)):
+        for gt, wt, name in zip(g, w, ("image", "vnf", "alive")):
+            err = max(err, assert_equal(gt, wt,
+                                        f"pyramid {what} level {li} {name}"))
+    return err, sum(int(a.sum()) for _, _, a in got)
+
+
+def check_pyramid(dev, frames_by_size, nose, teacher,
+                  teacher_frames) -> tuple[float, float]:
     """The pyramid kernel vs its plain version on the face engine's plans
-    (720p and 480p frames) and on the nose's 24-level launch of the part
-    chain (720p frames at 320x180); faces and noise; → max |err|."""
-    max_err = 0.0
+    (720p and 480p frames), on the nose's 24-level launch of the part
+    chain (720p frames at 320x180) and on the distillation teacher's plan
+    (its 320x240 frames as they are, B=TRAIN_BATCH); faces and noise;
+    → (max |err|, max |err| over the plans with wide levels)."""
+    max_err = wide_err = 0.0
     cases = []
     for size, frames in frames_by_size.items():
         eng = get_engine(DEFAULT_FACE_CASCADE,
                          (160, round(size[1] * 160 / size[0])), 1.25,
                          device=dev)
-        cases.append((f"face {size[0]}x{size[1]}", eng, frames))
-    cases.append(("nose 1280x720", nose, frames_by_size[FRAME]))
-    for what, eng, frames in cases:
-        work = work_images(frames, (eng.image_w, eng.image_h), dev)
+        cases.append((f"face {size[0]}x{size[1]}", eng,
+                      work_images(frames, (eng.image_w, eng.image_h), dev)))
+    cases.append(("nose 1280x720", nose, work_images(
+        frames_by_size[FRAME], (nose.image_w, nose.image_h), dev)))
+    cases.append(("teacher", teacher, torch.from_numpy(teacher_frames).to(
+        dev)))
+    for what, eng, work in cases:
         noise = torch.from_numpy(np.random.RandomState(5).randint(
             0, 256, work.shape, np.uint8)).to(dev)
         n_alive = []
-        for x in (work, noise):
-            got = dense_cuda.pyramid_dense_phase(x, eng._plan)
-            want = dense_cuda.pyramid_dense_phase_reference(x, eng._plan)
-            torch.cuda.synchronize()
-            for li, (g, w) in enumerate(zip(got, want)):
-                for gt, wt, name in zip(g, w, ("image", "vnf", "alive")):
-                    max_err = max(max_err, assert_equal(
-                        gt, wt, f"pyramid {what} level {li} {name}"))
-            n_alive.append(sum(int(a.sum()) for _, _, a in got))
         p = eng._plan
+        for x in (work, noise):
+            err, alive = pyramid_equal(x, p, what)
+            max_err = max(max_err, err)
+            if p.n_wide:
+                wide_err = max(wide_err, err)
+            n_alive.append(alive)
         print(f"pyramid kernel, {what} -> work {eng.image_w}x{eng.image_h}, "
-              f"{len(p.levels)} levels in {len(p.items)} bands, B={BATCH}: "
-              f"== plain (level images, vnf, alive); alive windows "
-              f"{n_alive[0]} (faces) {n_alive[1]} (noise); smem per block "
-              f"{p.band_smem_bytes} B ({p.n_wide} wide levels)")
-    return max_err
+              f"{len(p.levels)} levels in {len(p.items)} bands, "
+              f"B={work.shape[0]}: == plain (level images, vnf, alive); "
+              f"alive windows {n_alive[0]} (faces) {n_alive[1]} (noise); "
+              f"smem per block {p.band_smem_bytes} B ({p.n_wide} wide "
+              f"levels)")
+    return max_err, wide_err
 
 
 def part_engines(dev) -> dict:
@@ -1129,10 +1188,11 @@ def part_device_pass(det, gray):
 
 def time_pyramid(gpu, work, plan, what) -> dict:
     """The pyramid kernel on one launch's levels, with its plain version
-    and bound."""
+    and bound; the kernel's outputs are held to the plain version's."""
     k, p, runs = in_turns(lambda: dense_cuda.pyramid_dense_phase(work, plan),
                           lambda: dense_cuda.pyramid_dense_phase_reference(
                               work, plan), 50, 5)
+    pyramid_equal(work, plan, what)
     res = dense_cuda.pyramid_dense_phase(work, plan)
     n_bytes = work.numel() + sum(
         (img.numel() if img is not None else 0) + 5 * vnf.numel()
@@ -1142,7 +1202,7 @@ def time_pyramid(gpu, work, plan, what) -> dict:
                 * l.sh * l.sw for l, (_, vnf, alive) in zip(plan.levels, res))
     b_ms, b_by = bound(n_bytes, n_ops)
     print(f"time: pyramid dense kernel {k:.4f} ms per {work.shape[0]}-image "
-          "720p batch "
+          f"batch of {work.shape[2]}x{work.shape[1]} work images "
           f"over {what} ({len(plan.levels)} levels in {len(plan.items)} "
           f"bands; runs {runs}); plain {p:.4f} ms; bound {b_ms:.4f} ms "
           f"({b_by}) [{gpu}]")
@@ -1470,6 +1530,271 @@ def serving_path(dev, gpu) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------- training
+def synth_scene(rng, return_geom: bool = False):
+    """cv2-free stand-in for ``distill.make_scene``: a 320x240
+    ``utils/synth.face_scene`` frame with one cartoon face at a random
+    place and size over noise, and no ignore geometry."""
+    s = int(rng.randint(28, 72))
+    face = (int(rng.randint(s, distill.W - s)),
+            int(rng.randint(s, distill.H - s)), s)
+    img = face_scene(distill.W, distill.H, faces=(face,),
+                     seed=int(rng.randint(1 << 30)),
+                     bg=int(rng.randint(90, 200)))
+    return (img, []) if return_geom else img
+
+
+def teacher_parts_scene(teacher):
+    """cv2-free stand-in for ``cnn_parts.scene_with_parts``: a
+    ``synth_scene`` frame whose face class carries the teacher's boxes;
+    the other classes carry none."""
+    def scene(rng):
+        img = synth_scene(rng)
+        boxes, valid = distill.label_batch(teacher, img[None])
+        out = np.zeros((cnn_parts.C, cnn_parts.MAX_PER_CLASS, 4), np.float32)
+        val = np.zeros((cnn_parts.C, cnn_parts.MAX_PER_CLASS), bool)
+        out[0, :distill.MAX_FACES] = boxes[0]
+        val[0, :distill.MAX_FACES] = valid[0]
+        return img, out, val
+    return scene
+
+
+def teacher_launches(teacher, n_batches: int) -> dict[str, int]:
+    """Launches of ``n_batches`` labelled batches that the teacher's
+    plan predicts: one #1 launch each, with its wide-level bands."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["pyramid_dense_phase"] = n_batches
+    want["pyramid_dense_phase_wide"] = n_batches * (teacher._plan.n_wide > 0)
+    return want
+
+
+def params_close(got: dict, want: dict, lr_sum: float) -> tuple[float,
+                                                                  float]:
+    """(max, median) |difference| of two nested parameter dicts; raises
+    past 2·lr_sum or a median of CARD_PARAM_MEDIAN."""
+    d = np.concatenate([np.abs(got[n][k] - want[n][k]).ravel()
+                        for n in want for k in want[n]])
+    if d.max() > 2 * lr_sum or np.median(d) > CARD_PARAM_MEDIAN:
+        raise AssertionError(f"parameters differ: max {d.max()}, median "
+                             f"{np.median(d)}")
+    return float(d.max()), float(np.median(d))
+
+
+def grads_close(got: dict, want: dict) -> tuple[str, float]:
+    """(leaf, gap) of the worst leaf: max |difference| of two gradients
+    as a share of the leaf's largest |gradient|; raises past
+    CARD_GRAD_TOL."""
+    gaps = {k: float((got[k] - w).abs().max() / w.abs().max())
+            for k, w in want.items()}
+    leaf = max(gaps, key=gaps.get)
+    if gaps[leaf] > CARD_GRAD_TOL:
+        raise AssertionError(f"step 0's gradients differ: {gaps}")
+    return leaf, gaps[leaf]
+
+
+def training_path(dev, gpu) -> dict[str, int]:
+    """Phase 11: the teacher, the face trainer and the parts trainer on
+    the card at the shipped width (B=32, 320x240), each launch counted;
+    then the card against the card host's CPU, a train-state round trip,
+    and the step's time and memory."""
+    total = dict.fromkeys(KERNELS, 0)
+
+    def count(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    teacher = distill.make_teacher(dev)
+    cpu_teacher = distill.make_teacher("cpu")
+    frames = face_clip(TRAIN_BATCH, distill.W, distill.H, seed=5)
+    reset_counts()
+    labels = distill.label_batch(teacher, frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = teacher_launches(teacher, 1)
+    print(f"teacher: {len(teacher.levels)} levels at {distill.W}x"
+          f"{distill.H} ({teacher._plan.n_wide} wide) in "
+          f"{len(teacher._plan.items)} bands; one labelled batch of "
+          f"{TRAIN_BATCH}: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"teacher launches: expected {want}")
+    count(counts)
+    for g, c in zip(labels, distill.label_batch(cpu_teacher, frames)):
+        if not np.array_equal(g, c):
+            raise AssertionError("teacher labels: CUDA differs from CPU")
+    if not labels[1].any():
+        raise AssertionError("the teacher found no face on face_clip")
+    print(f"teacher labels == CPU ({int(labels[1].sum())} faces in "
+          f"{TRAIN_BATCH} frames)")
+
+    # distill.train itself, make_scene replaced by the cv2-free source;
+    # cnn.train_step is wrapped to read every step's loss and whether the
+    # parameters moved (count 0 of the schedule moves nothing)
+    losses, snaps = [], []
+    real_step = cnn.train_step
+
+    def recorded_step(model, *args, **kw):
+        if len(losses) < 3:
+            snaps.append([p.detach().clone() for p in model.parameters()])
+        out = real_step(model, *args, **kw)
+        losses.append(out[0])
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "student.npz")
+        n_labels = TRAIN_POOL + (TRAIN_STEPS - 1) // TRAIN_REGEN
+        with mock.patch.object(distill, "make_scene", synth_scene), \
+                mock.patch.object(cnn, "train_step", recorded_step):
+            reset_counts()
+            t0 = time.perf_counter()
+            params, final = distill.train(
+                steps=TRAIN_STEPS, batch=TRAIN_BATCH, lr=TRAIN_LR,
+                n_pool=TRAIN_POOL, regen_every=TRAIN_REGEN, log_every=10,
+                save_every=0, out=out, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+        print(f"distill.train: {TRAIN_STEPS} steps, {n_labels} labelled "
+              f"batches in {secs:.2f} s, launches {counts}")
+        if counts != teacher_launches(teacher, n_labels):
+            raise AssertionError("distill.train: teacher launches differ")
+        count(counts)
+        steps_loss = torch.stack(losses).cpu().numpy()
+        if len(steps_loss) != TRAIN_STEPS or not np.isfinite(
+                steps_loss).all():
+            raise AssertionError(f"distill.train losses {steps_loss}")
+        still = all(torch.equal(a, b) for a, b in zip(snaps[0], snaps[1]))
+        moved = not all(torch.equal(a, b) for a, b in zip(snaps[1], snaps[2]))
+        if not (still and moved):
+            raise AssertionError("expected step 0 to move nothing and step "
+                                 "1 to move the parameters")
+        det = CnnFaceDetector((distill.W, distill.H), checkpoint=out,
+                              device=dev)
+        res = det.process(frames)
+        print(f"distill.train: losses {np.round(steps_loss, 4).tolist()} "
+              f"(final {final:.4f}), step 0 moved nothing, step 1 moved "
+              f"the parameters; the saved npz serves on the card "
+              f"({sum(len(r) for r in res)} faces on {len(res)} frames)")
+
+    scene = teacher_parts_scene(teacher)
+    with mock.patch.object(cnn_parts, "scene_with_parts", scene):
+        reset_counts()
+        pparams, pfinal = cnn_parts.train(
+            steps=PARTS_STEPS, batch=TRAIN_BATCH, lr=TRAIN_LR,
+            n_pool=PARTS_POOL, regen_every=0, log_every=PARTS_STEPS - 1,
+            device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    print(f"cnn_parts.train: {PARTS_STEPS} steps, C={cnn_parts.C} with ctx, "
+          f"final loss {pfinal:.4f}, launches {counts} (the teacher on "
+          f"each of {PARTS_POOL * TRAIN_BATCH} scenes)")
+    if counts != teacher_launches(teacher, PARTS_POOL * TRAIN_BATCH) \
+            or not np.isfinite(pfinal):
+        raise AssertionError("cnn_parts.train on the card")
+    count(counts)
+    res = cnn_parts.CnnPartDetector((distill.W, distill.H), params=pparams,
+                                    device=dev).process(frames[:4])
+    print(f"cnn_parts: the trained weights serve on the card "
+          f"({len(res)} frames)")
+
+    # the face trainer's first steps, card against the card host's CPU,
+    # from the same carried weights and the same pool
+    params0 = cnn.init_params(torch.Generator().manual_seed(1), ctx=True)
+    rng = np.random.RandomState(3)
+    with mock.patch.object(distill, "make_scene", synth_scene):
+        pool = [distill.pool_entry(teacher, rng, TRAIN_BATCH)
+                for _ in range(PARITY_STEPS)]
+
+    def run(d, entries):
+        """(model, opt, sched, losses, lrs, step 0's gradients on the
+        host): the gradients stay on the parameters after the step."""
+        model = cnn.CnnNet(params0).to(d)
+        opt, sched = cnn.make_optimizer(model.parameters(), TRAIN_LR,
+                                        steps=TRAIN_STEPS)
+        losses, lrs = [], []
+        for e in entries:
+            lrs.append(opt.param_groups[0]["lr"])
+            losses.append(float(cnn.train_step(model, opt, sched,
+                                               *(t.to(d) for t in e))[0]))
+            if len(losses) == 1:
+                grads = {k: p.grad.detach().cpu()
+                         for k, p in model.named_parameters()}
+        return model, opt, sched, losses, lrs, grads
+
+    gmodel, gopt, gsched, g_losses, lrs, g_grads = run(dev, pool)
+    cmodel, _, _, c_losses, _, c_grads = run("cpu", pool)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g_losses, c_losses))
+    leaf, gap = grads_close(g_grads, c_grads)
+    pmax, pmed = params_close(cnn.params_to_numpy(gmodel.state_dict()),
+                              cnn.params_to_numpy(cmodel.state_dict()),
+                              sum(lrs))
+    print(f"train steps card vs CPU: losses {g_losses} / {c_losses} (max "
+          f"relative {rel:.3g}, tolerance {CARD_LOSS_RTOL}); step 0's "
+          f"gradients: worst leaf {leaf} within {gap:.3g} of its largest "
+          f"|gradient| (tolerance {CARD_GRAD_TOL}); parameters max |diff| "
+          f"{pmax:.3g}, median {pmed:.3g} (bounds {2 * sum(lrs):.3g} = "
+          f"2·Σ lr {lrs}, {CARD_PARAM_MEDIAN:.3g})")
+    if rel > CARD_LOSS_RTOL:
+        raise AssertionError("train step losses: card differs from CPU")
+
+    # train-state round trip on the card after PARITY_STEPS steps
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_train_state(tmp, gmodel, gopt, gsched, PARITY_STEPS)
+        model2 = cnn.CnnNet(cnn.init_params(
+            torch.Generator().manual_seed(2), ctx=True)).to(dev)
+        opt2, sched2 = cnn.make_optimizer(model2.parameters(), TRAIN_LR,
+                                          steps=TRAIN_STEPS)
+        step = checkpoint.load_train_state(tmp, model2, opt2, sched2)
+    same = step == PARITY_STEPS and all(
+        torch.equal(a, b) for a, b in zip(gmodel.state_dict().values(),
+                                          model2.state_dict().values()))
+    for p, p2 in zip(gmodel.parameters(), model2.parameters()):
+        same &= all(torch.equal(gopt.state[p][k], opt2.state[p2][k])
+                    for k in ("exp_avg", "exp_avg_sq", "step"))
+    same &= (gopt.param_groups[0]["lr"] == opt2.param_groups[0]["lr"]
+             and gsched.last_epoch == sched2.last_epoch)
+    nxt = [float(cnn.train_step(m, o, sc, *pool[0])[0])
+           for m, o, sc in ((gmodel, gopt, gsched), (model2, opt2, sched2))]
+    rel = abs(nxt[0] - nxt[1]) / abs(nxt[0])
+    print(f"train state round trip on the card: parameters, exp_avg, "
+          f"exp_avg_sq, step and lr bit for bit: {same}; next step's loss "
+          f"{nxt[0]} / {nxt[1]} (relative {rel:.3g})")
+    if not same or rel > CARD_LOSS_RTOL:
+        raise AssertionError("train state round trip on the card")
+
+    # times: a warm step at B=32 320x240, its peak memory; the teacher
+    gray, obj_t, reg_t = pool[0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cnn.train_step(gmodel, gopt, gsched, gray, obj_t, reg_t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = cuda_ms(lambda: cnn.train_step(gmodel, gopt, gsched, gray,
+                                             obj_t, reg_t), TIMED_STEPS)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: cnn.loss_fn(gmodel, gray, obj_t, reg_t),
+                         TIMED_STEPS)
+    print(f"time: train step (forward, loss, backward, AdamW, schedule) "
+          f"{step_ms:.4f} ms at B={TRAIN_BATCH} {distill.W}x{distill.H}, "
+          f"{TRAIN_BATCH * 1000.0 / step_ms:.1f} images/s (forward and loss "
+          f"alone {fwd_ms:.4f} ms); peak memory of a step "
+          f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB resident before "
+          f"it: weights, AdamW state, the pool) [{gpu}]")
+    gdev = torch.from_numpy(frames).to(dev)
+    dev_ms = cuda_ms(lambda: teacher.detect_grouped(gdev, 3), 10)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        distill.label_batch(teacher, frames)
+    host_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    print(f"time: teacher {dev_ms:.4f} ms per labelled batch of "
+          f"{TRAIN_BATCH} on the device (detect_grouped on device-resident "
+          f"frames), {host_ms:.3f} ms through label_batch from host frames "
+          f"[{gpu}]")
+    time_pyramid(gpu, gdev, teacher._plan,
+                 f"the teacher's {len(teacher.levels)} levels at "
+                 f"{distill.W}x{distill.H} ({teacher._plan.n_wide} wide)")
+    return total
+
+
 def times(dev, gpu, face_eng, dets, frames_720, xs, ears,
           ear_frames) -> dict[str, dict]:
     out: dict[str, dict] = {}
@@ -1591,8 +1916,11 @@ def main() -> int:
     dets = part_engines(dev)
     ears = ear_detectors(dev)
     ear_frames = ear_clip(EAR_BATCHES * BATCH)
-    err = {"pyramid_dense_phase": check_pyramid(
-        dev, frames, dets["NoseDetector"].part_engines["nose"])}
+    pyr_err, pyr_wide_err = check_pyramid(
+        dev, frames, dets["NoseDetector"].part_engines["nose"],
+        distill.make_teacher(dev),
+        face_clip(TRAIN_BATCH, distill.W, distill.H, seed=5))
+    err = {"pyramid_dense_phase": pyr_err}
     err.update(check_level_kernels(dev, dets, frames[FRAME]))
     ear_err, ear_wide_err = check_ear_pyramid(dev, ears, ear_frames[:BATCH])
     err["pyramid_dense_phase"] = max(err["pyramid_dense_phase"], ear_err)
@@ -1600,6 +1928,10 @@ def main() -> int:
                                           ear_wide_err)
     xs = layer_inputs(dev, frames[FRAME])
     err.update(check_quant(dev, xs))
+    err["pyramid_dense_phase"] = max(err["pyramid_dense_phase"],
+                                     pyr_err)
+    err["pyramid_dense_phase_wide"] = max(err["pyramid_dense_phase_wide"],
+                                          pyr_wide_err)
 
     phase("4 face path")
     launches, face_eng = face_path(dev, frames[FRAME])
@@ -1625,6 +1957,10 @@ def main() -> int:
 
     phase("10 serving")
     for k, v in serving_path(dev, gpu).items():
+        launches[k] += v
+
+    phase("11 training")
+    for k, v in training_path(dev, gpu).items():
         launches[k] += v
 
     phase("9 times")

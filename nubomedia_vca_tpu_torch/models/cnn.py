@@ -1,5 +1,6 @@
-"""Learned face detector — the PyTorch port of the serving path of
-``nubomedia_vca_tpu/models/cnn.py``.
+"""Learned face detector — the PyTorch port of
+``nubomedia_vca_tpu/models/cnn.py``: its serving path and its training
+half.
 
 An anchor-free conv detector on a 320x240 canvas (grid 20x15 at stride
 16): four stride-2 3x3 convs, an optional residual 3x3 dilation-4 context
@@ -16,14 +17,22 @@ since bf16 values are exact in TF32. Sums run in another order than
 XLA's, so the forward matches the JAX package to a tolerance, not bit for
 bit (``tests/test_torch_cnn.py``). The int8 variant is ``models/quant.py``.
 
+Training (``init_params``, ``CnnNet``, ``boxes_to_targets``, ``loss_fn``,
+``make_optimizer``, ``train_step``, ``save_params_npz``) is torch autograd
+through the same forward: ``CnnNet`` holds float32 master weights as
+``nn.Parameter``s and casts them on each call as the JAX forward does, so
+the backward of each cast rounds the gradient to bf16 where JAX's bf16
+operands do. ``CnnFace`` is the same module under ``no_grad``. The
+distillation trainer is ``models/distill.py``, the part trainer
+``models/cnn_parts.py``.
+
 ``reconfigure`` changes the knobs of a live detector, as the remote
-object's setters do. Training (``init_params``, ``loss_fn``,
-``train_step``, targets, the optimizer) is not ported yet. Host code is
-copied from the JAX package.
+object's setters do. Host code is copied from the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -66,6 +75,15 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = np.asarray(flat[key])
     return params
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """Nested parameter dict → the JAX package's flat-key npz checkpoint
+    ("conv0/w" HWIO, ...), which ``load_params_npz`` of either package
+    reads."""
+    np.savez(path, **{f"{name}/{leaf}": np.asarray(v, np.float32)
+                      for name, layer in params.items()
+                      for leaf, v in layer.items()})
 
 
 def letterbox_params(frame_w: int, frame_h: int,
@@ -114,7 +132,21 @@ def params_from_numpy(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def _conv_layers(params: dict) -> list[tuple[str, int, int]]:
+def params_to_numpy(flat: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``params_from_numpy``: flat tensors on any device
+    (``CnnNet.state_dict()``) → the JAX package's nested dict of float32
+    numpy arrays, conv weights back to HWIO."""
+    params: dict = {}
+    for key, t in flat.items():
+        name, leaf = key.split(".")
+        a = t.detach().cpu().float()
+        if a.ndim == 4:
+            a = a.permute(2, 3, 1, 0)
+        params.setdefault(name, {})[leaf] = np.ascontiguousarray(a.numpy())
+    return params
+
+
+def _conv_layers(params) -> list[tuple[str, int, int]]:
     """(name, stride, dilation) of the conv layers the checkpoint has."""
     layers = [(f"conv{i}", 2, 1) for i in range(4)]
     if "ctx" in params:
@@ -122,43 +154,302 @@ def _conv_layers(params: dict) -> list[tuple[str, int, int]]:
     return layers
 
 
-class CnnFace(torch.nn.Module):
-    """The bf16 forward (``cnn.forward``): gray [B,H,W] uint8 →
-    [B,H/16,W/16,5] float32. Weights are buffers; there is no training.
+class CnnNet(torch.nn.Module):
+    """The differentiable bf16 forward (``cnn.forward``): gray [B,H,W]
+    uint8 → [B,H/16,W/16,out] float32, out = 5 for the face model, C*5 for
+    the part model. Each layer is a ``ParameterDict`` of float32 master
+    weights, so ``state_dict()`` keys are ``params_from_numpy``'s
+    ("conv0.w", ...). Every call casts them as the JAX forward does: conv
+    weights and biases to bf16, head weights to bf16 values held in
+    float32; activations enter the head as float32 and leave head1 rounded
+    to bf16. The backward of each cast rounds its gradient to bf16, where
+    the cotangents of JAX's bf16 operands are bf16.
+
     Its head is two float32 matmuls, so it refuses to be built when TF32
     would round them (``torch.backends.cuda.matmul.allow_tf32`` set or the
     float32 matmul precision not "highest"); it changes no global
-    setting."""
+    setting. The convs are bf16, which ``cudnn.allow_tf32`` does not
+    touch."""
 
     def __init__(self, params: dict):
         _check_true_f32_matmul("CnnFaceDetector")
         super().__init__()
         self.layers = _conv_layers(params)
-        for name, t in params_from_numpy(params).items():
-            if not name.startswith("head"):
-                t = t.to(torch.bfloat16)
-            elif name.endswith(".w"):     # bf16 values held in float32
-                t = t.to(torch.bfloat16).float()
-            self.register_buffer(name.replace(".", "_"), t)
+        flat = params_from_numpy(params)
+        for name in params:
+            self.add_module(name, torch.nn.ParameterDict({
+                leaf: torch.nn.Parameter(flat[f"{name}.{leaf}"])
+                for leaf in ("w", "b")}))
 
     def _conv(self, x: torch.Tensor, name: str, stride: int,
               dilation: int) -> torch.Tensor:
+        layer = getattr(self, name)
         pt = same_pads(x.shape[2], stride, dilation)
         pl = same_pads(x.shape[3], stride, dilation)
         x = F.pad(x, (*pl, *pt))
-        y = F.conv2d(x, getattr(self, f"{name}_w"), stride=stride,
+        y = F.conv2d(x, layer["w"].to(torch.bfloat16), stride=stride,
                      dilation=dilation)
-        return torch.relu(y + getattr(self, f"{name}_b")[:, None, None])
+        return torch.relu(y + layer["b"].to(torch.bfloat16)[:, None, None])
 
-    @torch.no_grad()
     def forward(self, gray: torch.Tensor) -> torch.Tensor:
         x = (gray.to(torch.bfloat16) / 128.0 - 1.0)[:, None]   # NCHW
         for name, stride, dilation in self.layers:
             y = self._conv(x, name, stride, dilation)
             x = x + y if name == "ctx" else y
         x = x.permute(0, 2, 3, 1).float()                       # NHWC
-        h = torch.relu(x @ self.head1_w + self.head1_b)
-        return h.to(torch.bfloat16).float() @ self.head2_w + self.head2_b
+        h = torch.relu(x @ self._head_weight("head1") + self.head1["b"])
+        return (h.to(torch.bfloat16).float() @ self._head_weight("head2")
+                + self.head2["b"])
+
+    def _head_weight(self, name: str) -> torch.Tensor:
+        """A head's weight as the forward uses it: bf16 values in
+        float32."""
+        return getattr(self, name)["w"].to(torch.bfloat16).float()
+
+
+class CnnFace(CnnNet):
+    """The serving forward: ``CnnNet`` under ``no_grad``, bit for bit the
+    same values. It holds its weights as the forward casts them (conv
+    weights and biases in bf16, head weights as bf16 values in float32),
+    so a call launches no cast of a weight."""
+
+    def __init__(self, params: dict):
+        super().__init__(params)
+        for name, layer in self.named_children():
+            for leaf, p in layer.items():
+                if not name.startswith("head"):
+                    p.data = p.data.to(torch.bfloat16)
+                elif leaf == "w":
+                    p.data = p.data.to(torch.bfloat16).float()
+        self.requires_grad_(False)
+
+    def _head_weight(self, name: str) -> torch.Tensor:
+        return getattr(self, name)["w"]
+
+    @torch.no_grad()
+    def forward(self, gray: torch.Tensor) -> torch.Tensor:
+        return super().forward(gray)
+
+
+# ------------------------------------------------------------- training
+def init_params(generator: torch.Generator, channels=(16, 32, 64, 128),
+                head_dim: int = 256, ctx: bool = False) -> dict:
+    """``cnn.init_params``: 4 stride-2 3x3 convs, head 1x1 → head_dim → 5,
+    and with ctx=True the residual dilated context conv; He-normal conv
+    and head1 weights, head2 weights N(0, 0.01²), zero biases. Returns the
+    JAX package's nested dict of float32 numpy arrays (conv weights HWIO).
+    The values come from `generator` (CPU), so they match the JAX
+    package's keys, shapes and scales, not its PRNG's draws."""
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=generator) * scale).numpy()
+
+    params = {}
+    cin = 1
+    for i, c in enumerate(channels):
+        params[f"conv{i}"] = {"w": normal((3, 3, cin, c),
+                                          np.sqrt(2.0 / (9 * cin))),
+                              "b": np.zeros((c,), np.float32)}
+        cin = c
+    params["head1"] = {"w": normal((cin, head_dim), np.sqrt(2.0 / cin)),
+                       "b": np.zeros((head_dim,), np.float32)}
+    params["head2"] = {"w": normal((head_dim, 5), 0.01),
+                       "b": np.zeros((5,), np.float32)}
+    if ctx:
+        params["ctx"] = {"w": normal((3, 3, cin, cin),
+                                     np.sqrt(2.0 / (9 * cin))),
+                         "b": np.zeros((cin,), np.float32)}
+    return params
+
+
+# XLA:CPU's float32 log (the Cephes polynomial, with the FMAs its program
+# contracts), so that targets equal the JAX package's bit for bit: torch's
+# log is correctly rounded and differs from it in about 2% of box widths.
+# The constants are the float32 values XLA uses.
+_LOG_P = [float(np.float32(c)) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1)]
+_LOG_Q1, _LOG_Q2 = float(np.float32(-2.12194440e-4)), 0.693359375
+_SQRT_HALF = float(np.float32(0.707106781186547524))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """XLA's float32 fused multiply-add: a*b + c in float64 (a*b of two
+    float32 values is exact there), rounded to float32. The float64 sum's
+    own rounding could only matter on a float32 tie, which no value of
+    ``tests/test_torch_train.py`` meets. a, b, c: float32 tensors or
+    float32-representable floats."""
+    a, b, c = (v.double() if isinstance(v, torch.Tensor) else v
+               for v in (a, b, c))
+    return (a * b + c).to(torch.float32)
+
+
+def _xla_log(x: torch.Tensor) -> torch.Tensor:
+    """log of positive normal float32 values, as XLA:CPU computes it."""
+    m, e = torch.frexp(x)
+    low = m < _SQRT_HALF
+    e = e.to(torch.float32) - low.to(torch.float32)
+    m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y = _fma(_fma(p[0], m, p[1]), m, p[2])
+    y1 = _fma(_fma(p[3], m, p[4]), m, p[5])
+    y2 = _fma(_fma(p[6], m, p[7]), m, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, e * _LOG_Q1)
+    return _fma(e, _LOG_Q2, (m - 0.5 * x2) + y)
+
+
+# the 3x3 neighbourhood: neighbours first, the center (0, 0) LAST so its
+# regression wins conflicts
+_OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+            if (dy, dx) != (0, 0)] + [(0, 0)]
+
+
+def boxes_to_targets(boxes: torch.Tensor, valid: torch.Tensor, img_h: int,
+                     img_w: int, ignore_boxes: torch.Tensor | None = None,
+                     ignore_valid: torch.Tensor | None = None):
+    """[B,N,4] float32 boxes (x, y, w, h) + [B,N] valid → detection-grid
+    targets on the boxes' device, equal to the JAX package's
+    ``boxes_to_targets`` bit for bit.
+
+    obj [B,gh,gw] ∈ {1, -1, -2, 0}: 1 = center cell (positive), -1 = a
+    cell of the 3x3 ring around a center (no objectness loss, but
+    regression-supervised), -2 = inside an ignore box (no gradient at
+    all), 0 = negative. reg [B,gh,gw,4]: center offset within the cell's
+    own frame / STRIDE and log w/h relative to STRIDE, written over the
+    whole 3x3 neighbourhood.
+
+    Scatter order is XLA:CPU's: within each of the 9 offsets the highest
+    box index writes last (a duplicate cell takes its value), and the
+    offsets write in ``_OFFSETS`` order. An invalid (zero-padded) box
+    writes back the value its cell held before that offset's scatter, so
+    it can undo a lower-indexed valid box's write to the same cell in
+    that offset (a face near the top-left corner shares cell (0, 0) with
+    the padding boxes): inherited behaviour of the JAX package,
+    reproduced and not fixed."""
+    gh, gw = img_h // STRIDE, img_w // STRIDE
+    B, N = valid.shape
+    dev = boxes.device
+    boxes = boxes.to(torch.float32)
+    cells = B * gh * gw
+    pos = torch.zeros(cells, device=dev)
+    nb = torch.zeros(cells, device=dev)
+    reg = torch.zeros(cells + 1, 4, device=dev)  # last row: shadowed writes
+    cx = boxes[..., 0] + boxes[..., 2] / 2.0
+    cy = boxes[..., 1] + boxes[..., 3] / 2.0
+    gx = (cx / STRIDE).to(torch.int32).clamp(0, gw - 1)
+    gy = (cy / STRIDE).to(torch.int32).clamp(0, gh - 1)
+    logw = _xla_log(boxes[..., 2].clamp(min=1) / STRIDE)
+    logh = _xla_log(boxes[..., 3].clamp(min=1) / STRIDE)
+    base = torch.arange(B, device=dev)[:, None] * (gh * gw)
+    idx = torch.arange(N, device=dev)
+    later = idx[None, :] > idx[:, None]          # [n, n']: n' after n
+    vf = valid.to(torch.float32).flatten()
+    for dy, dx in _OFFSETS:
+        gyn = (gy + dy).clamp(0, gh - 1)
+        gxn = (gx + dx).clamp(0, gw - 1)
+        t = torch.stack([cx / STRIDE - gxn, cy / STRIDE - gyn, logw, logh],
+                        dim=-1)
+        cell = base + gyn * gw + gxn              # [B,N]
+        val = torch.where(valid[..., None], t, reg[cell])
+        shadowed = ((cell[:, :, None] == cell[:, None, :]) & later).any(-1)
+        reg[torch.where(shadowed, cells, cell)] = val
+        nb.scatter_reduce_(0, cell.flatten(), vf, "amax")
+        if (dy, dx) == (0, 0):
+            pos.scatter_reduce_(0, cell.flatten(), vf, "amax")
+    obj = (pos - nb * (1.0 - pos)).reshape(B, gh, gw)
+    if ignore_boxes is not None:
+        ignore_boxes = ignore_boxes.to(torch.float32)
+        xs = (torch.arange(gw, dtype=torch.float32, device=dev) + 0.5) * STRIDE
+        ys = (torch.arange(gh, dtype=torch.float32, device=dev) + 0.5) * STRIDE
+        x0, y0 = ignore_boxes[..., 0], ignore_boxes[..., 1]
+        x1, y1 = x0 + ignore_boxes[..., 2], y0 + ignore_boxes[..., 3]
+        inx = (xs >= x0[..., None]) & (xs <= x1[..., None])   # [B,N,gw]
+        iny = (ys >= y0[..., None]) & (ys <= y1[..., None])   # [B,N,gh]
+        cover = (inx[:, :, None, :] & iny[:, :, :, None]
+                 & ignore_valid[..., None, None]).any(dim=1)  # [B,gh,gw]
+        obj = torch.where((obj == 0) & cover, -2.0, obj)
+    return obj, reg[:cells].reshape(B, gh, gw, 4)
+
+
+POS_WEIGHT = 64.0  # positives are ~1:300 cells; unweighted BCE suppresses them
+NEG_FOCAL = 8.0    # extra weight on confident false positives (see loss_fn)
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``optax.sigmoid_binary_cross_entropy``, elementwise."""
+    return (torch.relu(logits) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def loss_fn(model: torch.nn.Module, gray: torch.Tensor, obj_t: torch.Tensor,
+            reg_t: torch.Tensor):
+    """``cnn.loss_fn`` → (loss, (obj_loss, reg_loss)). obj_t ∈ {1, -1, -2,
+    0} (positive / ignore-ring / ignore-box / negative, see
+    ``boxes_to_targets``): the ring contributes regression but no
+    objectness gradient, ignore boxes nothing. A negative cell scored near
+    1 gets up to NEG_FOCAL extra weight; easy negatives keep weight 1."""
+    pred = model(gray)
+    obj_logit = pred[..., 0]
+    pos = (obj_t > 0).float()
+    ign = (obj_t < 0).float()
+    regw = (pos + (obj_t == -1).float())[..., None]       # the 3x3 ring
+    bce = sigmoid_bce(obj_logit, pos)
+    p = torch.sigmoid(obj_logit).detach()
+    neg_w = (1.0 + NEG_FOCAL * p.square()) * (1.0 - ign)
+    obj_loss = (bce * torch.where(pos > 0, POS_WEIGHT, neg_w)).mean()
+    reg_loss = ((pred[..., 1:] - reg_t).abs()
+                * regw).sum() / regw.sum().clamp(min=1.0)
+    return obj_loss + reg_loss, (obj_loss, reg_loss)
+
+
+def warmup_cosine(steps: int):
+    """The lr factor at update count k of
+    ``optax.warmup_cosine_decay_schedule(0, lr, warmup, steps, 0.02 * lr)``
+    with warmup = min(200, max(steps // 10, 1)): linear from 0, then a
+    cosine over the remaining ``steps - warmup`` counts down to 2%."""
+    warmup = min(200, max(steps // 10, 1))
+    decay = steps - warmup
+    if decay <= 0:
+        raise ValueError("the cosine decay needs steps > warmup steps, got "
+                         f"steps={steps}")
+
+    def factor(k: int) -> float:
+        if k < warmup:
+            return k / warmup
+        t = min(k - warmup, decay)
+        return 0.98 * 0.5 * (1.0 + math.cos(math.pi * t / decay)) + 0.02
+
+    return factor
+
+
+def make_optimizer(parameters, lr: float = 3e-4, steps: int | None = None):
+    """``cnn.make_optimizer`` → (AdamW, LambdaLR): optax's adamw (betas
+    0.9/0.999, eps 1e-8, weight decay 1e-4 on every parameter, biases
+    included) at a constant lr, or, when the step count is known, on the
+    warmup-cosine schedule (``warmup_cosine``). Count 0 gives lr 0, so
+    the first step moves nothing, as in optax. Call the scheduler's
+    ``step()`` after each optimizer step (``train_step`` does)."""
+    opt = torch.optim.AdamW(parameters, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    factor = warmup_cosine(steps) if steps else (lambda k: 1.0)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+
+def train_step(model: torch.nn.Module, optimizer, scheduler,
+               gray: torch.Tensor, obj_t: torch.Tensor, reg_t: torch.Tensor,
+               loss=loss_fn):
+    """One update: the loss's gradient, AdamW, the schedule's next count.
+    Returns (loss, (obj_loss, reg_loss)), detached, on the model's device
+    (nothing is read back to the host)."""
+    optimizer.zero_grad(set_to_none=True)
+    total, (obj_loss, reg_loss) = loss(model, gray, obj_t, reg_t)
+    total.backward()
+    optimizer.step()
+    scheduler.step()
+    return total.detach(), (obj_loss.detach(), reg_loss.detach())
 
 
 def decode(pred: torch.Tensor, threshold: float = 0.5, top_k: int = 32):

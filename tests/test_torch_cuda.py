@@ -4,8 +4,10 @@ included, the tilted kernels of the level dense phase, the tilted-table
 kernel, the integral-tables kernel, the int8 quantizers) against its plain
 PyTorch
 version on the card, and the face, part, ear and learned detectors, the
-motion tracker and the drawing ops on CUDA against the port's CPU run (the
-drawing also against its numpy twins).
+motion tracker, the drawing ops and the learned detectors' training path
+(the distillation teacher, train steps, the train-state round trip) on
+CUDA against the port's CPU run (the drawing also against its numpy
+twins).
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. On a
 GPU host without JAX, run them with
@@ -31,7 +33,7 @@ from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EarDetector,
                                             EarDetectorConfig, EyeDetector,
                                             MouthDetector, NoseDetector,
                                             QuantizedCnnFaceDetector)
-from nubomedia_vca_tpu_torch.models import tracker
+from nubomedia_vca_tpu_torch.models import cnn, distill, tracker
 from nubomedia_vca_tpu_torch.models.face import (DEFAULT_FACE_CASCADE,
                                                  FaceDetector)
 from nubomedia_vca_tpu_torch.ops import quant
@@ -40,6 +42,7 @@ from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
 from nubomedia_vca_tpu_torch.ops.integral import tilted_integral_image
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
+from nubomedia_vca_tpu_torch.utils import checkpoint
 from nubomedia_vca_tpu_torch.utils.synth import (blob_clip, face_clip,
                                                  face_scene, profile_scene)
 
@@ -64,10 +67,12 @@ def _levels_equal(got, want):
 
 @pytest.mark.parametrize("size,factor", [((160, 90), 1.25),
                                          ((160, 120), 1.25),
+                                         ((320, 240), 1.25),
                                          ((97, 61), 1.1)])
 def test_kernel_equals_plain_version(cuda_device, size, factor):
     """Exact equality (level images, vnf, alive) on faces and on noise, at
-    the main path's work sizes and an odd geometry."""
+    the main path's work sizes (320x240: the distillation teacher's plan,
+    3 wide levels), and an odd geometry."""
     w, h = size
     eng = CascadeEngine(load_cascade(DEFAULT_FACE_CASCADE), size, factor,
                         device=cuda_device)
@@ -635,3 +640,108 @@ def test_rpc_serving_on_card(cuda_device):
     want = direct.render(bgr, direct.process(gray)).numpy()
     assert np.array_equal(got, want)
     assert (got != bgr).any()
+
+
+# ------------------------------------------------------------- training
+LR = 3e-4
+# the same torch code on the card and on the CPU (chip_smoke.py's bounds)
+CARD_LOSS_RTOL = 1e-5
+CARD_GRAD_TOL = 2e-2
+CARD_PARAM_MEDIAN = LR / 1000
+
+
+def test_teacher_labels_cuda_equal_cpu(cuda_device):
+    """The distillation teacher at 320x240: one pyramid launch per
+    labelled batch, labels equal to the CPU teacher's."""
+    frames = face_clip(8, 320, 240, seed=5)
+    gpu = distill.make_teacher(cuda_device)
+    before = dense_cuda.pyramid_dense_phase.launches
+    got = distill.label_batch(gpu, frames)
+    assert dense_cuda.pyramid_dense_phase.launches == before + 1
+    want = distill.label_batch(distill.make_teacher("cpu"), frames)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert got[1].any()
+
+
+def _train_entries(n, device):
+    rs = np.random.RandomState(0)
+    clip = face_clip(4 * n, 320, 240, seed=2)
+    out = []
+    for k in range(n):
+        boxes = torch.from_numpy(np.concatenate(
+            [rs.randint(0, 200, (4, 3, 2)), rs.randint(20, 100, (4, 3, 2))],
+            axis=-1).astype(np.float32))
+        valid = torch.from_numpy(rs.rand(4, 3) < 0.7)
+        obj, reg = cnn.boxes_to_targets(boxes.to(device), valid.to(device),
+                                        240, 320)
+        cobj, creg = cnn.boxes_to_targets(boxes, valid, 240, 320)
+        assert torch.equal(obj.cpu(), cobj) and torch.equal(reg.cpu(), creg)
+        out.append((torch.from_numpy(clip[4 * k:4 * k + 4]), cobj, creg))
+    return out
+
+
+def _trainer(device, seed=1):
+    model = cnn.CnnNet(cnn.init_params(torch.Generator().manual_seed(seed),
+                                       ctx=True)).to(device)
+    opt, sched = cnn.make_optimizer(model.parameters(), LR, steps=20)
+    return model, opt, sched
+
+
+def test_train_steps_cuda_match_cpu(cuda_device):
+    """3 steps at the shipped width from the same weights and batches:
+    losses within CARD_LOSS_RTOL relative, parameters within 2·Σ lr of the
+    steps taken and a median within CARD_PARAM_MEDIAN; targets built on
+    the card equal the CPU's."""
+    entries = _train_entries(3, cuda_device)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model, opt, sched = _trainer(dev)
+        losses, lrs = [], []
+        for e in entries:
+            lrs.append(opt.param_groups[0]["lr"])
+            losses.append(float(cnn.train_step(
+                model, opt, sched, *(t.to(dev) for t in e))[0]))
+        runs.append((losses, [p.detach().cpu() for p in model.parameters()]))
+    (gl, gp), (cl, cp) = runs
+    for g, c in zip(gl, cl):
+        assert abs(g - c) <= CARD_LOSS_RTOL * abs(c)
+    d = torch.cat([(a - b).abs().flatten() for a, b in zip(gp, cp)])
+    assert float(d.max()) <= 2 * sum(lrs)
+    assert float(d.median()) <= CARD_PARAM_MEDIAN
+
+
+def test_train_grads_cuda_match_cpu(cuda_device):
+    """The loss's gradient at the same weights on one batch, leaf by
+    leaf: within CARD_GRAD_TOL of the leaf's largest |gradient|."""
+    entry = _train_entries(1, cuda_device)[0]
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model, _, _ = _trainer(dev)
+        cnn.loss_fn(model, *(t.to(dev) for t in entry))[0].backward()
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+    for k, c in grads[1].items():
+        gap = float((grads[0][k] - c).abs().max() / c.abs().max())
+        assert gap <= CARD_GRAD_TOL, (k, gap)
+
+
+def test_train_state_round_trip_cuda(cuda_device, tmp_path):
+    entries = [tuple(t.to(cuda_device) for t in e)
+               for e in _train_entries(3, cuda_device)]
+    model, opt, sched = _trainer(cuda_device)
+    for e in entries[:2]:
+        cnn.train_step(model, opt, sched, *e)
+    checkpoint.save_train_state(str(tmp_path), model, opt, sched, 2)
+    model2, opt2, sched2 = _trainer(cuda_device, seed=2)
+    assert checkpoint.load_train_state(str(tmp_path), model2, opt2,
+                                       sched2) == 2
+    for a, b in zip(model.state_dict().values(),
+                    model2.state_dict().values()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    for p, p2 in zip(model.parameters(), model2.parameters()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(opt.state[p][key], opt2.state[p2][key])
+    assert opt.param_groups[0]["lr"] == opt2.param_groups[0]["lr"]
+    want = float(cnn.train_step(model, opt, sched, *entries[2])[0])
+    got = float(cnn.train_step(model2, opt2, sched2, *entries[2])[0])
+    assert abs(got - want) <= CARD_LOSS_RTOL * abs(want)

@@ -114,7 +114,8 @@ def test_port_imports_no_jax():
         "for mod in ('models.ear', 'models.tracker', 'api.render', "
         "'api.rpc', 'api.media_loop', 'api.objects', 'api.idl', "
         "'cpp.ingest_binding', 'cli', 'models.cnn_parts', "
-        "'pipeline.scheduler', 'utils.tracing'):\n"
+        "'pipeline.scheduler', 'utils.tracing', 'models.distill', "
+        "'models.synth', 'models.textures', 'utils.checkpoint'):\n"
         "    assert 'nubomedia_vca_tpu_torch.' + mod in names, mod\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nubomedia_vca_tpu')]\n"
