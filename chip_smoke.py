@@ -2,9 +2,10 @@
 """Drive the PyTorch port's main paths once on an NVIDIA GPU: the face
 path, the part chain (nose, mouth, eyes), the ear detector, the learned
 face detector (int8 and bf16), the motion tracker, the drawing ops, the
-serving plane (JSON-RPC server, media loop, native ingest) and the
+serving plane (JSON-RPC server, media loop, native ingest), the
 learned detectors' training path (distillation teacher, trainers,
-checkpoints).
+checkpoints), the multi-device paths over NCCL and the cascade tooling
+(XML conversion, the AdaBoost trainer).
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -108,6 +109,30 @@ Phases, each printing its findings, any failure ending the run non-zero:
     within 1e-3); then the step's ms and images/s (CUDA events, warm), its
     peak memory, the teacher's ms per labelled batch and #1 on the
     teacher's levels with its plain version and bound;
+12. multi-device (after 11, before the times): ``parallel.dryrun.
+    dryrun_multichip`` over ``torch.cuda.device_count()`` NCCL processes,
+    one per card, spawned with a time limit (one card: world size 1, which
+    is all NCCL allows there; the multi-rank semantics are held on the
+    CPU with gloo by ``tests/test_torch_parallel.py``). At full width:
+    sharded face detection and, through a 4-stream ``StreamFeeder``,
+    detection and grouping of B=64 720p frames (160x90 work images, 7
+    levels, one #1 launch a batch); the sharded chain with
+    ``lefteye_2splits`` at 320x180 (#2 and #4 on its 24 levels); 3 dp×tp
+    train steps of the shipped CNN (B=32, 320x240, ``ctx``, the teacher's
+    labels). Each process holds every sharded output against the
+    unsharded path on its card (detection exactly; the train step's losses
+    within 1e-5 relative, parameters within 2·Σ lr, median lr/1000) and
+    the sharded launches against the prediction; it prints the time to
+    join the group and the ms per sharded and per unsharded batch;
+13. cascade tooling: the three bundled XML families (frontalface_alt,
+    lefteye_2splits, smile) to the old format and back, the loaded
+    cascades equal; an engine on the card built from the old-format face
+    file gives the bundled file's candidates; two stages of the cascade
+    trainer at the part recipe's widths (``tools/train_part_cascades.py``:
+    20x20, n_pos 3000, n_neg 8000, 3000 features; 8 stages cut to 2) from
+    cv2-free samples, on the card and on the CPU, writing the same XML
+    bytes, with the feature GEMM's ms per stage on both; the trained
+    cascade's engine on the card (one #1 launch) equal to the CPU's;
 9. times (CUDA events, kernel and plain version in turns): each kernel at
    the main paths' shapes with its plain version, its bound from the
    shapes and this run's data, and a PyTorch call computing the same
@@ -156,8 +181,12 @@ from nubomedia_vca_tpu_torch.api import (  # noqa: E402
     media_loop, objects, rpc)
 from nubomedia_vca_tpu_torch.api.render import (  # noqa: E402
     render_detections)
-from nubomedia_vca_tpu_torch.cascade.engine import get_engine  # noqa: E402
+from nubomedia_vca_tpu_torch.cascade import convert, train  # noqa: E402
+from nubomedia_vca_tpu_torch.cascade.engine import (  # noqa: E402
+    CascadeEngine, get_engine)
 from nubomedia_vca_tpu_torch.cascade.paths import find_cascade  # noqa: E402
+from nubomedia_vca_tpu_torch.cascade.xml_loader import (  # noqa: E402
+    load_cascade_xml)
 from nubomedia_vca_tpu_torch.cpp import ingest_binding  # noqa: E402
 from nubomedia_vca_tpu_torch.models import (  # noqa: E402
     CnnFaceDetector, EarDetector, EarDetectorConfig, EyeDetector,
@@ -176,9 +205,10 @@ from nubomedia_vca_tpu_torch.ops.integral import (  # noqa: E402
     tilted_from_integral, tilted_integral_image)
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
+from nubomedia_vca_tpu_torch.parallel import dryrun  # noqa: E402
 from nubomedia_vca_tpu_torch.utils import checkpoint  # noqa: E402
 from nubomedia_vca_tpu_torch.utils.synth import (  # noqa: E402
-    blob_clip, face_clip, face_scene, profile_scene)
+    blob_clip, draw_face, face_clip, face_scene, profile_scene)
 
 FRAME = (1280, 720)
 BATCH = 64
@@ -213,6 +243,15 @@ CARD_PARAM_MEDIAN = TRAIN_LR / 1000
 PARTS_STEPS = 6        # cnn_parts.train's steps, constant lr
 PARTS_POOL = 2
 TIMED_STEPS = 20       # warm train steps timed with CUDA events
+MULTI_TIMEOUT = 300.0  # seconds the multi-device processes may take, phase 12
+MULTI_TIMED = 5        # sharded and unsharded calls timed each, phase 12
+# phase 13: the part-cascade recipe's widths (tools/train_part_cascades.py
+# :54, 20x20 window, n_pos 3000, n_neg 8000, a pool of 3000 features, up
+# to 40 weaks a stage); its depth cut from 8 stages to 2
+TOOLING_TRAIN = dict(n_stages=2, n_pos=3000, n_neg=8000, max_features=3000,
+                     max_weaks_per_stage=40, verbose=False)
+TOOLING_XML = ("haarcascade_frontalface_alt.xml",
+               "haarcascade_lefteye_2splits.xml", "haarcascade_smile.xml")
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the
 # float32 rate outside the tensor cores, which the dense kernels' integer
 # adds and float32 compares run at
@@ -1795,6 +1834,255 @@ def training_path(dev, gpu) -> dict[str, int]:
     return total
 
 
+def multichip_launches(eye) -> dict[str, int]:
+    """Sharded launches per process that phase 12 predicts: one #1
+    launch for each of the detection, serving and chain face passes (no
+    wide level at 160x90), and the eye's tilted levels once (#2, its
+    tilted table and #4 per level)."""
+    n_tilted = eye.routes.count("tilted")
+    return {"pyramid_dense_phase": 3, "pyramid_dense_phase_wide": 0,
+            "dense_level_tilted": n_tilted, "tilted_table": n_tilted,
+            "integral_tables": n_tilted}
+
+
+def multichip_path(dev, gpu, frames_720) -> dict[str, int]:
+    """Phase 12: ``parallel.dryrun.dryrun_multichip`` at full width over
+    one NCCL process per card (``torch.cuda.device_count()``), spawned,
+    with a time limit: sharded face detection and grouping of B=64 720p
+    frames (160x90 work images, pushed through a 4-stream
+    ``StreamFeeder`` for the serving step), the sharded chain at 320x180
+    with ``lefteye_2splits``, and 3 dp×tp train steps of the shipped CNN
+    (B=32, 320x240, the teacher's labels). Every process holds each
+    sharded output against the unsharded path on its card (detection
+    exactly, the train step within ``dryrun.LOSS_RTOL`` and 2·Σ lr / a
+    median of lr/1000) and times both."""
+    n = torch.cuda.device_count()
+    n_model = dryrun.default_n_model(n)
+    face = work_images(frames_720, (160, 90), dev).cpu().numpy()
+    tframes = face_clip(TRAIN_BATCH, distill.W, distill.H, seed=7)
+    boxes, valid = distill.label_batch(distill.make_teacher(dev), tframes)
+    inputs = dryrun.DryrunInputs(
+        face=face, part=work_images(frames_720, (320, 180), dev).cpu().numpy(),
+        serve=face, train_gray=tframes, train_boxes=boxes,
+        train_valid=valid, train_steps=PARITY_STEPS,
+        params=cnn.load_params_npz(cnn.find_checkpoint()))
+    t0 = time.perf_counter()
+    reports = dryrun.dryrun_multichip(n, "cuda", inputs=inputs,
+                                      timed=MULTI_TIMED,
+                                      timeout=MULTI_TIMEOUT)
+    print(f"multi-device: {n} NCCL process(es), mesh {n // n_model}x"
+          f"{n_model}, {time.perf_counter() - t0:.1f} s from spawn to the "
+          "last result")
+    total = dict.fromkeys(KERNELS, 0)
+    want = multichip_launches(get_engine(
+        find_cascade(inputs.part_cascade), (320, 180), inputs.part_factor,
+        device=dev))
+    for r, rep in enumerate(reports):
+        ms = rep["ms"]
+        print(f"multi-device rank {r}: process group, mesh and a first "
+              f"all-reduce {rep['setup_s']:.3f} s; sharded launches "
+              f"{rep['launches']} (per process: {want})")
+        if rep["launches"] != want:
+            raise AssertionError(f"rank {r}: sharded launches "
+                                 f"{rep['launches']}, predicted {want}")
+        for k, v in rep["launches"].items():
+            total[k] += v
+        print(f"multi-device rank {r}: sharded == unsharded: detect, "
+              f"serving (4 streams), chain exactly; train "
+              f"{rep['train_check']} over {PARITY_STEPS} steps, losses "
+              f"{rep['train_losses']}")
+        for what, n_img in (("detect_grouped", BATCH), ("chain", BATCH),
+                            ("train_step", TRAIN_BATCH)):
+            print(f"time: multi-device rank {r} {what} {ms[what]:.4f} ms "
+                  f"per sharded batch of {n_img}, unsharded "
+                  f"{ms[what + '_unsharded']:.4f} ms [{gpu}]")
+    return total
+
+
+def tooling_samplers(window=(20, 20)):
+    """cv2-free (positives(n, rng), negatives(n, rng)) for the cascade
+    trainer: positives are ``utils/synth`` cartoon faces cropped square
+    with 8% scale and 10% position jitter; negatives are blocky noise at a
+    random grain, stripes and gradients, and off-centre or wrong-scale
+    crops of the same faces. Crops are resampled to the window by nearest
+    neighbour."""
+    w, h = window
+    yy, xx = np.mgrid[0:h, 0:w]
+
+    def crop(img, x, y, side):
+        idx = (np.arange(w) * side) // w
+        return img[y + idx][:, x + idx]
+
+    def canvas(rng, s):
+        img = np.full((4 * s, 4 * s), rng.randint(60, 230), np.int16)
+        img = (img + rng.randint(-8, 9, img.shape)).clip(0, 255)
+        img = img.astype(np.uint8)
+        draw_face(img, 2 * s, 2 * s, s)
+        return img
+
+    def positives(n, rng):
+        out = np.empty((n, h, w), np.uint8)
+        for i in range(n):
+            s = int(rng.randint(12, 30))
+            img = canvas(rng, s)
+            side = int(2 * s * rng.uniform(0.92, 1.08))
+            jx, jy = (int(rng.randint(-(s // 10), s // 10 + 1))
+                      for _ in range(2))
+            out[i] = crop(img, 2 * s - side // 2 + jx,
+                          2 * s - side // 2 + jy, side)
+        return out
+
+    def negatives(n, rng):
+        out = np.empty((n, h, w), np.uint8)
+        for i, kind in enumerate(rng.randint(0, 3, n)):
+            if kind == 0:
+                k = int(rng.choice([2, 4, 5, 10, 20]))
+                img = np.kron(rng.randint(0, 256, (k, k)),
+                              np.ones((h // k, w // k), int))
+                img = img + rng.randint(-6, 7, (h, w))
+            elif kind == 1:
+                f, a = rng.uniform(0.05, 0.6), rng.uniform(0, np.pi)
+                img = (128 + rng.uniform(20, 120) * np.sin(
+                    f * (xx * np.cos(a) + yy * np.sin(a))
+                    + rng.uniform(0, 6)) + rng.randint(-10, 11, (h, w)))
+            else:
+                s = int(rng.randint(12, 30))
+                side = min(int(2 * s * rng.choice([0.5, 2.0])), 4 * s)
+                img = crop(canvas(rng, s),
+                           int(rng.randint(0, 4 * s - side + 1)),
+                           int(rng.randint(0, 4 * s - side + 1)), side)
+            out[i] = np.clip(img, 0, 255)
+        return out
+
+    return positives, negatives
+
+
+def cascades_equal(got, want, what: str) -> None:
+    """The loaded cascades hold the same arrays, and every weak's features
+    the same rects, weights and tilt (``tests/test_cascade_loader.py``)."""
+    same = ((got.window_w, got.window_h) == (want.window_w, want.window_h)
+            and all(np.array_equal(getattr(got, k), getattr(want, k))
+                    for k in ("thr0", "thrL", "thrR", "leavesL", "leavesR",
+                              "weak_stage", "stage_thresholds"))
+            and all(np.array_equal(getattr(got, a)[getattr(got, k)],
+                                   getattr(want, a)[getattr(want, k)])
+                    for k in ("feat0", "featL", "featR")
+                    for a in ("rects", "rect_weights", "tilted")))
+    if not same:
+        raise AssertionError(f"{what}: the loaded cascades differ")
+
+
+def tooling_path(dev, gpu, frames_720) -> dict[str, int]:
+    """Phase 13: the three bundled XML families to the old format and
+    back (loaded cascades equal, an engine on the card built from the
+    old-format face file gives the same candidates); two stages of the
+    cascade trainer at the part recipe's widths, on the card and on the
+    CPU, from the same cv2-free samples (the same XML bytes); the
+    trained cascade's engine on the card (#1) against the CPU engine."""
+    total = dict.fromkeys(KERNELS, 0)
+    work = work_images(frames_720, (160, 90), dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in TOOLING_XML:
+            src = find_cascade(name)
+            old = os.path.join(tmp, "old_" + name)
+            new = os.path.join(tmp, "new_" + name)
+            convert.new_to_old_xml(src, old)
+            convert.old_to_new_xml(old, new)
+            ref = load_cascade_xml(src)
+            cascades_equal(load_cascade_xml(old), ref, f"{name} old")
+            cascades_equal(load_cascade_xml(new), ref, f"{name} back")
+            print(f"convert: {name} → old ({os.path.getsize(old)} B) → "
+                  f"new ({os.path.getsize(new)} B): loaded cascades equal "
+                  f"({ref.n_stages} stages, {int(ref.tilted.sum())} tilted "
+                  "features)")
+        old_face = os.path.join(tmp, "old_" + TOOLING_XML[0])
+        old_eng = CascadeEngine(load_cascade_xml(old_face), (160, 90), 1.25,
+                                device=dev)
+        reset_counts()
+        got = old_eng.candidates(work)
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            total[k] += v
+        want = get_engine(DEFAULT_FACE_CASCADE, (160, 90), 1.25,
+                          device=dev).candidates(work)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the old-format face file's engine differs")
+        print(f"convert: the old-format face file's engine on the card == "
+              f"the bundled file's: {sum(map(len, got))} raw candidates on "
+              f"B={BATCH} 160x90")
+
+        pos_s, neg_s = tooling_samplers()
+        cfg = train.TrainConfig(**TOOLING_TRAIN)
+        xml, calls = {}, {}
+        real_fv = train.feature_values
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            calls[where] = []
+
+            def timed_fv(samples, mat, chunk=2048, device=d, _c=calls[where]):
+                t = time.perf_counter()
+                out = real_fv(samples, mat, chunk, device)
+                _c.append((len(samples), mat.shape[1],
+                           (time.perf_counter() - t) * 1e3))
+                return out
+
+            t0 = time.perf_counter()
+            with mock.patch.object(train, "feature_values", timed_fv):
+                model = train.train_cascade(pos_s, neg_s, cfg, device=d)
+            path = os.path.join(tmp, f"trained_{where}.xml")
+            train.write_cascade_xml(path, model)
+            with open(path, "rb") as fh:
+                xml[where] = fh.read()
+            print(f"cascade trainer on the {where}: "
+                  f"{len(model.stages)} stages, weaks "
+                  f"{[len(s.weaks) for s in model.stages]}, "
+                  f"{time.perf_counter() - t0:.2f} s "
+                  f"({len(calls[where])} feature-value calls)")
+        if xml["card"] != xml["cpu"]:
+            raise AssertionError("the card-trained XML differs from the "
+                                 "CPU-trained bytes")
+        print(f"cascade trainer: card XML == CPU XML ({len(xml['card'])} B)")
+        stage_calls = [(c, p) for c, p in zip(calls["card"], calls["cpu"])
+                       if c[0] > TOOLING_TRAIN["n_neg"]]
+        for s_idx, ((n_s, n_f, card_ms), (_, _, cpu_ms)) in enumerate(
+                stage_calls):
+            mat = torch.from_numpy(train.corner_matrix(
+                train.feature_pool(20, 20, max_features=n_f), 20, 20))
+            p = torch.randint(0, 102001, (n_s, mat.shape[0])).float()
+            pd, md = p.to(dev), mat.to(dev)
+            gemm_ms = cuda_ms(lambda: pd @ md, 10)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                p @ mat
+            cpu_gemm = (time.perf_counter() - t0) * 1e3 / 3
+            print(f"time: trainer stage {s_idx} feature GEMM [{n_s}x"
+                  f"{mat.shape[0]}]x[{mat.shape[0]}x{n_f}] float32: card "
+                  f"{gemm_ms:.4f} ms, CPU {cpu_gemm:.4f} ms; feature_values "
+                  f"(patches, GEMM, copy back, normalization) card "
+                  f"{card_ms:.4f} ms, CPU {cpu_ms:.4f} ms [{gpu}]")
+
+        c = load_cascade_xml(os.path.join(tmp, "trained_card.xml"))
+    eng = CascadeEngine(c, (160, 90), 1.25, device=dev)
+    if set(eng.routes) != {"pyramid"}:
+        raise AssertionError(f"trained cascade routes {eng.routes}")
+    reset_counts()
+    got = eng.candidates(work)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k, v in counts.items():
+        total[k] += v
+    if counts["pyramid_dense_phase"] != 1:
+        raise AssertionError(f"trained engine launches {counts}")
+    want = CascadeEngine(c, (160, 90), 1.25, device="cpu").candidates(
+        work.cpu())
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the trained engine's card candidates differ "
+                             "from the CPU's")
+    print(f"trained cascade: engine on the card ({len(eng.levels)} levels, "
+          f"one #1 launch) == CPU, {sum(map(len, got))} raw candidates on "
+          f"B={BATCH} 160x90")
+    return total
+
+
 def times(dev, gpu, face_eng, dets, frames_720, xs, ears,
           ear_frames) -> dict[str, dict]:
     out: dict[str, dict] = {}
@@ -1961,6 +2249,14 @@ def main() -> int:
 
     phase("11 training")
     for k, v in training_path(dev, gpu).items():
+        launches[k] += v
+
+    phase("12 multi-device")
+    for k, v in multichip_path(dev, gpu, frames[FRAME]).items():
+        launches[k] += v
+
+    phase("13 cascade tooling")
+    for k, v in tooling_path(dev, gpu, frames[FRAME]).items():
         launches[k] += v
 
     phase("9 times")

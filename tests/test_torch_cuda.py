@@ -745,3 +745,34 @@ def test_train_state_round_trip_cuda(cuda_device, tmp_path):
     want = float(cnn.train_step(model, opt, sched, *entries[2])[0])
     got = float(cnn.train_step(model2, opt2, sched2, *entries[2])[0])
     assert abs(got - want) <= CARD_LOSS_RTOL * abs(want)
+
+
+def test_world_one_nccl_sharding_equals_unsharded(cuda_device):
+    """The multi-device dry run at world size 1 on NCCL (one card): the
+    sharded detection, serving step and part chain equal the unsharded
+    engines on the card, the dp×tp train step the unsharded step within
+    ``dryrun.LOSS_RTOL`` and its parameter bounds, and the chain's
+    kernels launch on the sharded path."""
+    from nubomedia_vca_tpu_torch.parallel import dryrun
+
+    rep, = dryrun.dryrun_multichip(1, "cuda", timeout=300.0)
+    n = rep["launches"]
+    assert n["pyramid_dense_phase"] >= 2           # detect, serve, chain
+    assert n["dense_level_tilted"] == n["integral_tables"] > 0
+    assert rep["train_check"]["loss_rel"] <= dryrun.LOSS_RTOL
+
+
+def test_trainer_gemm_cuda_equals_cpu(cuda_device):
+    """The cascade trainer's feature GEMM on the card equals the CPU's
+    bit for bit at the recipe's window and pool (20x20, 3000 features),
+    saturated windows included."""
+    from nubomedia_vca_tpu_torch.cascade import train
+
+    mat = train.corner_matrix(train.feature_pool(20, 20, max_features=3000),
+                              20, 20)
+    samples = np.random.RandomState(0).randint(0, 256, (2500, 20, 20)
+                                               ).astype(np.uint8)
+    samples[:8] = 255
+    got = train.feature_values(samples, mat, device=cuda_device)
+    want = train.feature_values(samples, mat, device="cpu")
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -115,7 +115,9 @@ def test_port_imports_no_jax():
         "'api.rpc', 'api.media_loop', 'api.objects', 'api.idl', "
         "'cpp.ingest_binding', 'cli', 'models.cnn_parts', "
         "'pipeline.scheduler', 'utils.tracing', 'models.distill', "
-        "'models.synth', 'models.textures', 'utils.checkpoint'):\n"
+        "'models.synth', 'models.textures', 'utils.checkpoint', "
+        "'utils.offline_images', 'cascade.convert', 'cascade.train', "
+        "'parallel.mesh', 'parallel.sharded', 'parallel.dryrun'):\n"
         "    assert 'nubomedia_vca_tpu_torch.' + mod in names, mod\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nubomedia_vca_tpu')]\n"
