@@ -4,8 +4,9 @@ path, the part chain (nose, mouth, eyes), the ear detector, the learned
 face detector (int8 and bf16), the motion tracker, the drawing ops, the
 serving plane (JSON-RPC server, media loop, native ingest), the
 learned detectors' training path (distillation teacher, trainers,
-checkpoints), the multi-device paths over NCCL and the cascade tooling
-(XML conversion, the AdaBoost trainer).
+checkpoints), the multi-device paths over NCCL, the cascade tooling
+(XML conversion, the AdaBoost trainer), and the entry point, the
+evaluation and cascade-training tools and the examples.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -119,8 +120,10 @@ Phases, each printing its findings, any failure ending the run non-zero:
     levels, one #1 launch a batch); the sharded chain with
     ``lefteye_2splits`` at 320x180 (#2 and #4 on its 24 levels); 3 dp×tp
     train steps of the shipped CNN (B=32, 320x240, ``ctx``, the teacher's
-    labels). Each process holds every sharded output against the
-    unsharded path on its card (detection exactly; the train step's losses
+    labels), then 3 on the recipe's warmup-cosine schedule and 3 more
+    resumed from their gathered optimizer and scheduler state, saved and
+    read back. Each process holds every sharded output against the
+    unsharded path on its card (detection exactly; the train steps' losses
     within 1e-5 relative, parameters within 2·Σ lr, median lr/1000) and
     the sharded launches against the prediction; it prints the time to
     join the group and the ms per sharded and per unsharded batch;
@@ -128,11 +131,26 @@ Phases, each printing its findings, any failure ending the run non-zero:
     lefteye_2splits, smile) to the old format and back, the loaded
     cascades equal; an engine on the card built from the old-format face
     file gives the bundled file's candidates; two stages of the cascade
-    trainer at the part recipe's widths (``tools/train_part_cascades.py``:
-    20x20, n_pos 3000, n_neg 8000, 3000 features; 8 stages cut to 2) from
-    cv2-free samples, on the card and on the CPU, writing the same XML
-    bytes, with the feature GEMM's ms per stage on both; the trained
-    cascade's engine on the card (one #1 launch) equal to the CPU's;
+    trainer at the part recipe's widths through
+    ``tools/torch_train_part_cascades.py`` ``train_one`` (20x20, n_pos
+    3000, n_neg 8000, 3000 features; 8 stages cut to 2) from cv2-free
+    samples, with its holdout check, on the card and on the CPU, writing
+    the same XML bytes, with the feature GEMM's ms per stage on both; the
+    trained cascade's engine on the card (one #1 launch) equal to the
+    CPU's;
+14. entry, tools and examples: the port's entry point
+    (``nubomedia_vca_tpu_torch/entry.py`` ``entry()``: 640x480 → 160x120,
+    frontalface_alt at 1.25) on its example batch and on face frames, raw
+    candidates equal to the CPU's, one #1 launch a call, its ms a call;
+    ``tools/torch_real_eval.py`` ``evaluate`` on 8 720p ``.npy`` scenes
+    with the int8 and the bf16 CNN (teacher and int8 boxes equal to the
+    CPU's, bf16 boxes within 2 px), recall, precision and ms per image;
+    ``tools/torch_eval_trained_cascades.py``: the real-photo sweep's scans
+    (the three shipped ``vca_*_synthetic.xml`` and the bundled profile
+    cascade at their serving configurations) on a synthetic 720p frame
+    and ``eval_xml_windows`` on cv2-free windows, equal to the CPU's; each
+    ``examples/torch_*.py`` demo as a subprocess on the card at a small
+    frame count, all five exiting 0 within 240 s;
 9. times (CUDA events, kernel and plain version in turns): each kernel at
    the main paths' shapes with its plain version, its bound from the
    shapes and this run's data, and a PyTorch call computing the same
@@ -177,6 +195,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from nubomedia_vca_tpu_torch import entry  # noqa: E402
 from nubomedia_vca_tpu_torch.api import (  # noqa: E402
     media_loop, objects, rpc)
 from nubomedia_vca_tpu_torch.api.render import (  # noqa: E402
@@ -209,6 +228,11 @@ from nubomedia_vca_tpu_torch.parallel import dryrun  # noqa: E402
 from nubomedia_vca_tpu_torch.utils import checkpoint  # noqa: E402
 from nubomedia_vca_tpu_torch.utils.synth import (  # noqa: E402
     blob_clip, draw_face, face_clip, face_scene, profile_scene)
+
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import torch_eval_trained_cascades  # noqa: E402
+import torch_real_eval  # noqa: E402
+import torch_train_part_cascades  # noqa: E402
 
 FRAME = (1280, 720)
 BATCH = 64
@@ -250,6 +274,13 @@ MULTI_TIMED = 5        # sharded and unsharded calls timed each, phase 12
 # to 40 weaks a stage); its depth cut from 8 stages to 2
 TOOLING_TRAIN = dict(n_stages=2, n_pos=3000, n_neg=8000, max_features=3000,
                      max_weaks_per_stage=40, verbose=False)
+EVAL_SCENES = 8        # 720p .npy scenes through tools/torch_real_eval, phase 14
+EXAMPLE_TIMEOUT = 240.0  # seconds the five demos may take together, phase 14
+EXAMPLES = {"torch_annotated_stream_demo.py": ("--frames", "8"),
+            "torch_cnn_demo.py": ("--frames", "4", "--quantized"),
+            "torch_full_chain_demo.py": ("--frames", "4"),
+            "torch_rpc_client_demo.py": (),
+            "torch_serving_demo.py": ("--streams", "4", "--frames", "4")}
 TOOLING_XML = ("haarcascade_frontalface_alt.xml",
                "haarcascade_lefteye_2splits.xml", "haarcascade_smile.xml")
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): HBM rate and the
@@ -1891,6 +1922,11 @@ def multichip_path(dev, gpu, frames_720) -> dict[str, int]:
               f"serving (4 streams), chain exactly; train "
               f"{rep['train_check']} over {PARITY_STEPS} steps, losses "
               f"{rep['train_losses']}")
+        print(f"multi-device rank {r}: warmup-cosine over "
+              f"{dryrun.SCHEDULE_STEPS} steps, {PARITY_STEPS} sharded, the "
+              f"gathered state saved, {PARITY_STEPS} resumed, against one "
+              f"unsharded run: {rep['schedule_check']}, losses "
+              f"{rep['schedule_losses']}")
         for what, n_img in (("detect_grouped", BATCH), ("chain", BATCH),
                             ("train_step", TRAIN_BATCH)):
             print(f"time: multi-device rank {r} {what} {ms[what]:.4f} ms "
@@ -2026,15 +2062,19 @@ def tooling_path(dev, gpu, frames_720) -> dict[str, int]:
                 return out
 
             t0 = time.perf_counter()
-            with mock.patch.object(train, "feature_values", timed_fv):
-                model = train.train_cascade(pos_s, neg_s, cfg, device=d)
             path = os.path.join(tmp, f"trained_{where}.xml")
-            train.write_cascade_xml(path, model)
+            with mock.patch.object(train, "feature_values", timed_fv):
+                res = torch_train_part_cascades.train_one(
+                    "nose", path, device=d, cfg=cfg,
+                    samplers=(pos_s, neg_s, {"clean": neg_s}))
+            model = res["model"]
             with open(path, "rb") as fh:
                 xml[where] = fh.read()
-            print(f"cascade trainer on the {where}: "
+            print(f"cascade trainer (tools/torch_train_part_cascades.py "
+                  f"train_one) on the {where}: "
                   f"{len(model.stages)} stages, weaks "
-                  f"{[len(s.weaks) for s in model.stages]}, "
+                  f"{[len(s.weaks) for s in model.stages]}, holdout det "
+                  f"{res['det']:.4f} fp {res['fp']['clean']:.5f}, "
                   f"{time.perf_counter() - t0:.2f} s "
                   f"({len(calls[where])} feature-value calls)")
         if xml["card"] != xml["cpu"]:
@@ -2080,6 +2120,188 @@ def tooling_path(dev, gpu, frames_720) -> dict[str, int]:
     print(f"trained cascade: engine on the card ({len(eng.levels)} levels, "
           f"one #1 launch) == CPU, {sum(map(len, got))} raw candidates on "
           f"B={BATCH} 160x90")
+    return total
+
+
+def eval_scenes(n: int, seed: int = 21) -> np.ndarray:
+    """[n, 720, 1280] ``utils/synth`` scenes: one cartoon face on even
+    indices, two (one in each half) on odd ones, at random places and
+    sizes large enough for the teacher's 160-px working width."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        xs = [(200, 420), (860, 1080)] if i % 2 else [(300, 980)]
+        faces = [(int(rng.randint(*x)), int(rng.randint(200, 520)),
+                  int(rng.randint(130, 180))) for x in xs]
+        out.append(face_scene(*FRAME, faces=faces, seed=seed + i))
+    return np.stack(out)
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made, synchronized)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def entry_tools_path(dev, gpu) -> dict[str, int]:
+    """Phase 14: the port's entry point (``entry.entry``), the evaluation
+    tools (``tools/torch_real_eval.py``, ``tools/torch_eval_trained_
+    cascades.py``) on the card against the CPU, and each
+    ``examples/torch_*.py`` demo as a subprocess on the card."""
+    total = dict.fromkeys(KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # 1. the entry point: the example batch and 4 face frames
+    fn, (example,) = entry.entry(dev)
+    cpu_fn, _ = entry.entry("cpu")
+    faces = torch.from_numpy(face_clip(entry.EXAMPLE_BATCH, *entry.FRAME,
+                                       seed=3)).to(dev)
+    for what, x in (("example", example), ("face frames", faces)):
+        got, counts = counted(lambda: fn(x))
+        add(counts)
+        want = {k: 0 for k in KERNELS}
+        want["pyramid_dense_phase"] = 1
+        if counts != want:
+            raise AssertionError(f"entry on the {what}: launches {counts}, "
+                                 f"expected {want}")
+        for g, c, name in zip(got, cpu_fn(x.cpu()),
+                              ("boxes", "valid", "overflow")):
+            assert_equal(g.cpu(), c, f"entry {what} {name}")
+        print(f"entry: fn({what} {tuple(x.shape)}) == CPU (raw candidates "
+              f"{tuple(got[0].shape)}, {int(got[1].sum())} valid), one #1 "
+              "launch")
+        if what == "face frames" and not int(got[1].sum()):
+            raise AssertionError("entry: no raw candidate on face frames")
+    print(f"time: entry fn(example) {cuda_ms(lambda: fn(example), 20):.4f} "
+          f"ms per call of B={entry.EXAMPLE_BATCH} "
+          f"{entry.FRAME[0]}x{entry.FRAME[1]} (CUDA events, 20 warm calls) "
+          f"[{gpu}]")
+
+    # 2. real_eval on .npy scenes: int8 and bf16, card against the CPU
+    scenes = eval_scenes(EVAL_SCENES)
+    with tempfile.TemporaryDirectory() as tmp:
+        images = []
+        for i, img in enumerate(scenes):
+            path = os.path.join(tmp, f"scene_{i}.npy")
+            np.save(path, img)
+            images.append((path, path))
+        for quantized in (True, False):
+            what = "int8" if quantized else "bf16"
+            rec = {"card": [], "cpu": []}
+            t0 = time.perf_counter()
+            res, counts = counted(lambda: torch_real_eval.evaluate(
+                images, quantized=quantized, device=dev, record=rec["card"]))
+            secs = time.perf_counter() - t0
+            add(counts)
+            want = {k: 0 for k in KERNELS}
+            want["pyramid_dense_phase"] = EVAL_SCENES
+            want["quantize_int8"] = 7 * EVAL_SCENES * quantized
+            if counts != want:
+                raise AssertionError(f"real_eval {what}: launches {counts}, "
+                                     f"expected {want}")
+            cpu_res = torch_real_eval.evaluate(
+                images, quantized=quantized, device="cpu", record=rec["cpu"])
+            n_exact = 0
+            for (name, tg, sg), (_, tc, sc) in zip(rec["card"], rec["cpu"]):
+                if not np.array_equal(tg, tc):
+                    raise AssertionError(f"real_eval {name}: teacher boxes "
+                                         "differ from the CPU's")
+                exact = np.array_equal(sg, sc)
+                n_exact += exact
+                if quantized and not exact:
+                    raise AssertionError(f"real_eval {name}: int8 boxes "
+                                         "differ from the CPU's")
+                if not exact and (sg.shape != sc.shape or np.abs(
+                        sg.astype(int) - sc).max() > 2):
+                    raise AssertionError(f"real_eval {name}: bf16 boxes "
+                                         "differ from the CPU's by more "
+                                         "than 2 px")
+            if res[2] < 1:
+                raise AssertionError(f"real_eval {what}: no true positive")
+            print(f"real_eval ({what}): recall {res[0]:.3f} precision "
+                  f"{res[1]:.3f} (tp {res[2]} fn {res[3]} fp {res[4]}) on "
+                  f"{EVAL_SCENES} 720p .npy scenes; CPU {cpu_res}; teacher "
+                  f"boxes == CPU, CNN boxes == CPU on {n_exact} of "
+                  f"{EVAL_SCENES}; {secs * 1e3 / EVAL_SCENES:.2f} ms per "
+                  f"image on the card (host clock, cold engines included); "
+                  f"launches {counts} [{gpu}]")
+
+    # 3. the real-pixel FP sweep's scans on a synthetic 720p frame on
+    # which the teacher found a face
+    gray = scenes[next(i for i, (_, t, _) in enumerate(rec["cpu"])
+                       if len(t))]
+    photo = dataclasses.make_dataclass(
+        "Photo", ["name", "bgr", "n_faces"])("synth_720p", np.repeat(
+            gray[..., None], 3, axis=2), 1)
+    rows, counts = counted(lambda: torch_eval_trained_cascades.run_real_sweep(
+        dev, photos=[photo]))
+    add(counts)
+    cpu_rows = torch_eval_trained_cascades.run_real_sweep("cpu",
+                                                          photos=[photo])
+    if rows != cpu_rows:
+        raise AssertionError("real_fp_scan: card rows differ from the CPU's")
+    if counts["pyramid_dense_phase"] != 1 + len(rows):
+        raise AssertionError(f"real_fp_scan launches {counts}")
+    for row in rows:
+        print(f"real_fp_scan: {row['cascade']} ({row['family']}) on a "
+              f"synthetic 720p frame: {row['n_det']} detections, "
+              f"{row['n_in_face']} in the face box {row['face_box']}")
+    print(f"real_fp_scan: card == CPU (counts and boxes) for "
+          f"{len(rows)} cascades; launches {counts}")
+
+    # 4. eval_xml_windows on cv2-free windows
+    pos_s, neg_s = tooling_samplers()
+    rng = np.random.RandomState(5)
+    wins = {"pos": pos_s(800, rng), "neg": neg_s(3000, rng)}
+    for part, fname in torch_eval_trained_cascades.PARTS.items():
+        casc = load_cascade_xml(os.path.join(
+            torch_eval_trained_cascades.ASSETS, fname))
+        rates = []
+        for kind, w in wins.items():
+            w = w[train.vnf_and_valid(w)[1]]
+            got = torch_eval_trained_cascades.eval_xml_windows(casc, w, dev)
+            want = torch_eval_trained_cascades.eval_xml_windows(casc, w,
+                                                                "cpu")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"eval_xml_windows {part} {kind}: card "
+                                     "mask differs from the CPU's")
+            rates.append(f"{kind} {got.mean():.4f} of {len(w)}")
+        print(f"eval_xml_windows: {fname} card == CPU, pass rate "
+              + ", ".join(rates))
+
+    # 5. the demos, as subprocesses on the card, all started together
+    # (two host threads each: they share the host's cores)
+    procs = {}
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    for name, args in EXAMPLES.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", name),
+             "--device", "cuda", *args], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    failed = []
+    for name, p in procs.items():
+        try:
+            out, _ = p.communicate(timeout=max(
+                EXAMPLE_TIMEOUT - (time.perf_counter() - t0), 1.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            failed.append(f"{name}: no exit within {EXAMPLE_TIMEOUT} s")
+            continue
+        last = (out.strip().splitlines() or [""])[-1]
+        print(f"example {name} {' '.join(EXAMPLES[name])}: rc "
+              f"{p.returncode} after {time.perf_counter() - t0:.1f} s; "
+              f"last line: {last[:160]}")
+        if p.returncode != 0:
+            failed.append(f"{name}: rc {p.returncode}\n{out[-3000:]}")
+    if failed:
+        raise AssertionError("examples failed: " + "\n".join(failed))
     return total
 
 
@@ -2257,6 +2479,10 @@ def main() -> int:
 
     phase("13 cascade tooling")
     for k, v in tooling_path(dev, gpu, frames[FRAME]).items():
+        launches[k] += v
+
+    phase("14 entry, tools and examples")
+    for k, v in entry_tools_path(dev, gpu).items():
         launches[k] += v
 
     phase("9 times")

@@ -5,7 +5,9 @@ One process per device joins a process group (NCCL on cards, one process
 per card; gloo on the CPU) and runs, over an ('data', 'model') mesh, the
 four multi-device steps of the JAX package's dry run:
 
-1. the learned detector's dp×tp train step (``make_sharded_train_step``);
+1. the learned detector's dp×tp train step (``make_sharded_train_step``),
+   at a constant lr and on the recipe's warmup-cosine schedule with a
+   resume from the gathered, saved optimizer and scheduler state;
 2. sharded cascade detection (``make_sharded_detect``);
 3. the serving step: 4 streams pushed into a ``StreamFeeder``, one drained
    batch through sharded detection and grouping
@@ -29,6 +31,7 @@ ranks.
 from __future__ import annotations
 
 import dataclasses
+import io
 import os
 import queue as queue_mod
 import sys
@@ -46,7 +49,8 @@ from ..models import cnn
 from ..ops.cuda import dense_cuda, dense_level_cuda, integral_cuda
 from ..pipeline.scheduler import StreamFeeder
 from .mesh import init_distributed, make_mesh, mesh_device
-from .sharded import (make_sharded_chain, make_sharded_detect,
+from .sharded import (TensorParallelCnnNet, full_optimizer_state,
+                      make_sharded_chain, make_sharded_detect,
                       make_sharded_detect_grouped, make_sharded_train_step)
 
 # the sharded train step against the unsharded one on the same device:
@@ -56,6 +60,7 @@ from .sharded import (make_sharded_chain, make_sharded_detect,
 LOSS_RTOL = 1e-5
 PARAM_MEDIAN = 3e-4 / 1000
 LR = 3e-4
+SCHEDULE_STEPS = 10    # the warmup-cosine run's length (warmup 1 step)
 # the kernels of these paths, by the wrapper attribute that counts them
 COUNTERS = {
     "pyramid_dense_phase": (dense_cuda.pyramid_dense_phase, "launches"),
@@ -280,38 +285,81 @@ def params_gap(got: dict, want: dict) -> tuple[float, float]:
     return float(d.max()), float(np.median(d))
 
 
+def _unsharded_run(inp: DryrunInputs, batch, n: int, steps=None):
+    """`n` steps of the unsharded ``cnn.train_step`` from ``inp.params``
+    (constant lr, or warmup-cosine over `steps`) → (losses, model,
+    optimizer, scheduler)."""
+    ref = cnn.CnnNet(inp.params).to(batch[0].device)
+    opt, sched = cnn.make_optimizer(ref.parameters(), LR, steps)
+    losses = [float(cnn.train_step(ref, opt, sched, *batch)[0])
+              for _ in range(n)]
+    return losses, ref, opt, sched
+
+
+def _check_run(losses, want, got_params, ref, lr_sum: float) -> dict:
+    """The sharded run against the unsharded one: losses within
+    ``LOSS_RTOL`` relative, parameters within 2·Σ lr (max) and
+    ``PARAM_MEDIAN`` (median); raises past them → the gaps."""
+    gap = max(abs(g - w) / abs(w) for g, w in zip(losses, want))
+    pmax, pmed = params_gap(got_params, cnn.params_to_numpy(ref.state_dict()))
+    check = {"loss_rel": gap, "param_max": pmax, "param_median": pmed,
+             "lr_sum": lr_sum}
+    if gap > LOSS_RTOL or pmax > 2 * lr_sum or pmed > PARAM_MEDIAN:
+        raise AssertionError(f"sharded train step against unsharded: {check}")
+    return check
+
+
 def _train(mesh, inp: DryrunInputs, timed: int, dev) -> dict:
-    """The dp×tp train step, `inp.train_steps` steps on one batch, held
-    against the unsharded ``cnn.train_step`` on the same device."""
+    """The dp×tp train step, `inp.train_steps` steps on one batch at a
+    constant lr, held against the unsharded ``cnn.train_step`` on the
+    same device; then the recipe's warmup-cosine schedule over
+    ``SCHEDULE_STEPS``: `inp.train_steps` sharded steps, their whole
+    state gathered, a new sharded step resumed from it for as many more,
+    held against one uninterrupted unsharded run on that schedule. The
+    resumed step takes an (optimizer, scheduler) pair built over its own
+    model and the state as read back from a file."""
     gray = torch.from_numpy(inp.train_gray).to(dev)
     _, h, w = inp.train_gray.shape
     obj_t, reg_t = cnn.boxes_to_targets(
         torch.from_numpy(inp.train_boxes).to(dev),
         torch.from_numpy(inp.train_valid).to(dev), h, w)
+    batch = (gray, obj_t, reg_t)
+    k = inp.train_steps
     step, model, _ = make_sharded_train_step(mesh, inp.params, LR)
-    losses = [float(step(gray, obj_t, reg_t)[0])
-              for _ in range(inp.train_steps)]
+    losses = [float(step(*batch)[0]) for _ in range(k)]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"training step produced {losses}")
     out = {"train_losses": losses, "train_params": model.full_params()}
-    ref = cnn.CnnNet(inp.params).to(dev)
-    opt, sched = cnn.make_optimizer(ref.parameters(), LR)
-    want = [float(cnn.train_step(ref, opt, sched, gray, obj_t, reg_t)[0])
-            for _ in range(inp.train_steps)]
-    gap = max(abs(g - w) / abs(w) for g, w in zip(losses, want))
-    pmax, pmed = params_gap(out["train_params"],
-                            cnn.params_to_numpy(ref.state_dict()))
-    out["train_check"] = {"loss_rel": gap, "param_max": pmax,
-                          "param_median": pmed}
-    if (gap > LOSS_RTOL or pmax > 2 * LR * inp.train_steps
-            or pmed > PARAM_MEDIAN):
-        raise AssertionError(f"sharded train step against unsharded: "
-                             f"{out['train_check']}")
+    want, ref, opt, sched = _unsharded_run(inp, batch, k)
+    out["train_check"] = _check_run(losses, want, out["train_params"], ref,
+                                     LR * k)
+
+    # warmup-cosine: k sharded steps, the whole state, k resumed steps
+    n = SCHEDULE_STEPS
+    s_step, s_model, (s_opt, s_sched) = make_sharded_train_step(
+        mesh, inp.params, LR, steps=n)
+    sched_losses = [float(s_step(*batch)[0]) for _ in range(k)]
+    buf = io.BytesIO()        # through torch.save and load, as a file is
+    torch.save({"optimizer": full_optimizer_state(s_model, s_opt),
+                "scheduler": s_sched.state_dict()}, buf)
+    buf.seek(0)
+    r_model = TensorParallelCnnNet(s_model.full_params(), mesh)
+    r_step, _, _ = make_sharded_train_step(
+        mesh, r_model, optimizer=cnn.make_optimizer(r_model.parameters(), LR,
+                                                    n),
+        state=torch.load(buf, map_location=dev, weights_only=True))
+    sched_losses += [float(r_step(*batch)[0]) for _ in range(k)]
+    out["schedule_losses"] = sched_losses
+    out["schedule_params"] = r_model.full_params()
+    factor = cnn.warmup_cosine(n)
+    s_want, s_ref, _, _ = _unsharded_run(inp, batch, 2 * k, n)
+    out["schedule_check"] = _check_run(
+        sched_losses, s_want, out["schedule_params"], s_ref,
+        LR * sum(factor(i) for i in range(2 * k)))
     if timed:
-        out["ms"] = {"train_step": _ms(
-            lambda: step(gray, obj_t, reg_t), dev, timed),
-            "train_step_unsharded": _ms(lambda: cnn.train_step(
-                ref, opt, sched, gray, obj_t, reg_t), dev, timed)}
+        out["ms"] = {"train_step": _ms(lambda: step(*batch), dev, timed),
+                     "train_step_unsharded": _ms(lambda: cnn.train_step(
+                         ref, opt, sched, *batch), dev, timed)}
     return out
 
 

@@ -211,18 +211,78 @@ def sharded_loss(model: TensorParallelCnnNet, gray, obj_t, reg_t):
     return obj_loss + reg_loss, (obj_loss, reg_loss)
 
 
-def make_sharded_train_step(mesh: DeviceMesh, params: dict,
-                            lr: float = 3e-4):
+def _param_placements(model: TensorParallelCnnNet) -> list:
+    """The placements of ``model.parameters()``, in their order (the
+    order of an optimizer's per-parameter state)."""
+    return [model.placements[name][leaf] for name, leaf in (
+        key.split(".") for key, _ in model.named_parameters())]
+
+
+def shard_optimizer_state(model: TensorParallelCnnNet, state: dict) -> dict:
+    """An optimizer ``state_dict()`` of the whole model (the unsharded
+    ``CnnNet``'s, or ``full_optimizer_state``'s) → this process's: each
+    parameter's tensors of its own shape (AdamW's moments) are split as
+    that parameter is; step counts and the parameter groups stay whole."""
+    placements = _param_placements(model)
+    shards = {}
+    for idx, per_param in state["state"].items():
+        pl = placements[int(idx)]
+        shards[idx] = {k: (local_shard(model.mesh, v, pl).contiguous()
+                           if torch.is_tensor(v) and v.ndim else v)
+                       for k, v in per_param.items()}
+    return {"state": shards, "param_groups": state["param_groups"]}
+
+
+def full_optimizer_state(model: TensorParallelCnnNet, optimizer) -> dict:
+    """This process's optimizer ``state_dict()`` with each split tensor
+    all-gathered over 'model': the whole model's state, equal on every
+    process, which ``shard_optimizer_state`` splits again (and which an
+    unsharded ``CnnNet``'s optimizer loads)."""
+    placements = _param_placements(model)
+    state = optimizer.state_dict()
+    whole = {}
+    for idx, per_param in state["state"].items():
+        pl = placements[int(idx)][1]
+        whole[idx] = {k: (_gather(model.mesh, "model", v, axis=pl.dim)
+                          if isinstance(pl, Shard) and torch.is_tensor(v)
+                          and v.ndim else v)
+                      for k, v in per_param.items()}
+    return {"state": whole, "param_groups": state["param_groups"]}
+
+
+def make_sharded_train_step(mesh: DeviceMesh, params, lr: float = 3e-4,
+                            steps: int | None = None, optimizer=None,
+                            state: dict | None = None):
     """dp (batch over 'data') × tp (head features over 'model') training
-    of the learned detector from the nested parameter dict `params` (the
-    same on every process). Returns (step, model, (optimizer, scheduler)):
-    step(gray [B,H,W], obj_t, reg_t) takes this process's shard of the
-    whole batch and returns the whole batch's (loss, (obj_loss,
-    reg_loss)) on every process; AdamW at a constant `lr`
-    (``cnn.make_optimizer``, as in the JAX dry run) updates each
-    process's shards."""
-    model = TensorParallelCnnNet(params, mesh)
-    opt, sched = cnn.make_optimizer(model.parameters(), lr)
+    of the learned detector, the port of the JAX package's
+    ``make_sharded_train_step(optimizer, mesh, params, opt_state)``.
+
+    `params` is the nested parameter dict (the same on every process) or
+    a ``TensorParallelCnnNet`` already built on `mesh`. `optimizer` is an
+    (optimizer, scheduler) pair over that model's parameters, as
+    ``cnn.make_optimizer(model.parameters(), lr, steps)`` returns it;
+    without one the step builds ``cnn.make_optimizer`` at `lr`: constant,
+    or on the warmup-cosine schedule over `steps`. `state` resumes a run:
+    ``{"optimizer": ..., "scheduler": ...}``, the whole model's state
+    dicts (an unsharded run's, as ``utils/checkpoint.save_train_state``
+    writes them, or ``full_optimizer_state``'s); the AdamW moments are
+    split as their parameters are, as the JAX package mirrors the
+    parameter shardings leaf for leaf.
+
+    Returns (step, model, (optimizer, scheduler)): step(gray [B,H,W],
+    obj_t, reg_t) takes the whole batch (the same on every process),
+    runs this process's shard of it on 'data', and returns the whole
+    batch's (loss, (obj_loss, reg_loss)) on every process; it updates each
+    process's shards and advances the schedule."""
+    model = (params if isinstance(params, TensorParallelCnnNet)
+             else TensorParallelCnnNet(params, mesh))
+    if model.mesh is not mesh:
+        raise ValueError("the model was built on another mesh")
+    opt, sched = optimizer or cnn.make_optimizer(model.parameters(), lr,
+                                                 steps)
+    if state is not None:
+        opt.load_state_dict(shard_optimizer_state(model, state["optimizer"]))
+        sched.load_state_dict(state["scheduler"])
     data = mesh.get_group("data")
 
     def step(gray, obj_t, reg_t):

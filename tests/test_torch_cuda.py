@@ -5,9 +5,10 @@ kernel, the integral-tables kernel, the int8 quantizers) against its plain
 PyTorch
 version on the card, and the face, part, ear and learned detectors, the
 motion tracker, the drawing ops and the learned detectors' training path
-(the distillation teacher, train steps, the train-state round trip) on
-CUDA against the port's CPU run (the drawing also against its numpy
-twins).
+(the distillation teacher, train steps, the train-state round trip), the
+multi-device dry run at world size 1, the cascade trainer's GEMM and the
+entry point on CUDA against the port's CPU run (the drawing also against
+its numpy twins).
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. On a
 GPU host without JAX, run them with
@@ -760,6 +761,7 @@ def test_world_one_nccl_sharding_equals_unsharded(cuda_device):
     assert n["pyramid_dense_phase"] >= 2           # detect, serve, chain
     assert n["dense_level_tilted"] == n["integral_tables"] > 0
     assert rep["train_check"]["loss_rel"] <= dryrun.LOSS_RTOL
+    assert rep["schedule_check"]["loss_rel"] <= dryrun.LOSS_RTOL
 
 
 def test_trainer_gemm_cuda_equals_cpu(cuda_device):
@@ -776,3 +778,22 @@ def test_trainer_gemm_cuda_equals_cpu(cuda_device):
     got = train.feature_values(samples, mat, device=cuda_device)
     want = train.feature_values(samples, mat, device="cpu")
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_entry_on_the_card_equals_cpu(cuda_device):
+    """The entry point's fn on its example batch and on face frames: one
+    pyramid launch a call, raw candidates equal to the CPU entry's."""
+    from nubomedia_vca_tpu_torch import entry
+
+    fn, (example,) = entry.entry()
+    cpu_fn, (cpu_example,) = entry.entry("cpu")
+    assert example.device.type == "cuda"
+    assert torch.equal(example.cpu(), cpu_example)
+    faces = torch.from_numpy(face_clip(4, 640, 480, seed=3))
+    for x in (cpu_example, faces):
+        before = dense_cuda.pyramid_dense_phase.launches
+        got = fn(x.to(cuda_device))
+        torch.cuda.synchronize()
+        assert dense_cuda.pyramid_dense_phase.launches == before + 1
+        for g, w in zip(got, cpu_fn(x)):
+            assert torch.equal(g.cpu(), w)

@@ -99,11 +99,19 @@ def test_reconfigure_keeps_tracks_and_swaps_engine(clips):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (found by pkgutil.walk_packages,
-    so a new module is covered without listing it) and chip_smoke.py
-    leaves jax and the JAX package out of sys.modules."""
+    so a new module is covered without listing it), chip_smoke.py and
+    every ``tools/torch_*.py`` and ``examples/torch_*.py`` leaves jax and
+    the JAX package out of sys.modules."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import glob, importlib, importlib.util, pkgutil, sys\n"
         "import chip_smoke\n"
+        "scripts = sorted(glob.glob('tools/torch_*.py') + "
+        "glob.glob('examples/torch_*.py'))\n"
+        "for i, path in enumerate(scripts):\n"
+        "    spec = importlib.util.spec_from_file_location(f'script{i}', "
+        "path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert len(scripts) == 9, scripts\n"
         "import nubomedia_vca_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
@@ -117,7 +125,8 @@ def test_port_imports_no_jax():
         "'pipeline.scheduler', 'utils.tracing', 'models.distill', "
         "'models.synth', 'models.textures', 'utils.checkpoint', "
         "'utils.offline_images', 'cascade.convert', 'cascade.train', "
-        "'parallel.mesh', 'parallel.sharded', 'parallel.dryrun'):\n"
+        "'parallel.mesh', 'parallel.sharded', 'parallel.dryrun', "
+        "'entry'):\n"
         "    assert 'nubomedia_vca_tpu_torch.' + mod in names, mod\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nubomedia_vca_tpu')]\n"

@@ -20,7 +20,12 @@ returns each process's outputs. They are held to:
   h @ W2 and each shard's bf16 weight gradients are summed in float32);
   against JAX's unsharded ``cnn.train_step`` within the torch-vs-XLA
   bounds of ``tests/test_torch_train.py`` (losses 1e-3 relative;
-  parameters max 2·k·lr, median lr/20).
+  parameters max 2·k·lr, median lr/20);
+* the same train step on the recipe's warmup-cosine schedule
+  (``steps=``), k steps, then resumed for k more from the gathered
+  optimizer and scheduler state, against an uninterrupted unsharded run
+  of the port and of JAX on that schedule, within the same bounds (the
+  parameters' max within 2·Σ lr of the steps taken).
 """
 
 from __future__ import annotations
@@ -116,7 +121,8 @@ def _torch_np(outputs):
 def test_every_rank_holds_the_whole_result(run):
     _, reports = run
     assert len(reports) == N
-    for key in ("detect", "serve", "chain", "train_losses", "train_params"):
+    for key in ("detect", "serve", "chain", "train_losses", "train_params",
+                "schedule_losses", "schedule_params"):
         for r, rep in enumerate(reports[1:], 1):
             _assert_same(rep[key], reports[0][key], f"rank {r} {key}")
     assert all(rep["setup_s"] > 0 for rep in reports)
@@ -224,6 +230,66 @@ def test_sharded_train_step_matches_jax(run):
     # the parameters moved
     assert not np.array_equal(reports[0]["train_params"]["head1"]["w"],
                               inputs.params["head1"]["w"])
+
+
+def _sum_lr(n_steps, steps):
+    factor = pcnn.warmup_cosine(steps)
+    return LR * sum(factor(i) for i in range(n_steps))
+
+
+def test_sharded_warmup_cosine_and_resume_equal_unsharded_port(run):
+    """The recipe's warmup-cosine schedule (``steps=``): k sharded steps,
+    the gathered optimizer and scheduler state saved and read back, a new
+    sharded step resumed from it for k more, against one uninterrupted
+    unsharded run of 2k steps on the same schedule."""
+    inputs, reports = run
+    k, n = inputs.train_steps, dryrun.SCHEDULE_STEPS
+    gray = torch.from_numpy(inputs.train_gray)
+    obj, reg = _targets(inputs)
+    model = pcnn.CnnNet(inputs.params)
+    opt, sched = pcnn.make_optimizer(model.parameters(), LR, n)
+    want = [float(pcnn.train_step(model, opt, sched, gray, obj, reg)[0])
+            for _ in range(2 * k)]
+    got = reports[0]["schedule_losses"]
+    assert len(got) == 2 * k
+    for g, w in zip(got, want):
+        assert abs(g - w) <= CARD_LOSS_RTOL * abs(w), (got, want)
+    pmax, pmed = dryrun.params_gap(reports[0]["schedule_params"],
+                                   pcnn.params_to_numpy(model.state_dict()))
+    assert pmax <= 2 * _sum_lr(2 * k, n), pmax
+    assert pmed <= CARD_PARAM_MEDIAN, pmed
+    # the schedule moved the parameters, and away from the constant-lr run
+    assert not np.array_equal(reports[0]["schedule_params"]["head1"]["w"],
+                              inputs.params["head1"]["w"])
+    assert reports[0]["schedule_check"]["lr_sum"] == pytest.approx(
+        _sum_lr(2 * k, n))
+
+
+def test_sharded_warmup_cosine_and_resume_match_jax(run):
+    """The same sharded run against JAX's unsharded ``cnn.train_step``
+    with ``cnn.make_optimizer(steps=n)`` (optax's warmup-cosine)."""
+    inputs, reports = run
+    k, n = inputs.train_steps, dryrun.SCHEDULE_STEPS
+    params = jax.tree_util.tree_map(jnp.asarray, inputs.params)
+    obj, reg = _targets(inputs)
+    opt = jcnn.make_optimizer(steps=n)
+    step = jax.jit(lambda p, o, g, ot, rt: jcnn.train_step(
+        p, o, g, ot, rt, optimizer=opt))
+    state = opt.init(params)
+    gray = jnp.asarray(inputs.train_gray)
+    want = []
+    for _ in range(2 * k):
+        params, state, loss = step(params, state, gray, obj.numpy(),
+                                   reg.numpy())
+        want.append(float(loss))
+    got = reports[0]["schedule_losses"]
+    for g, w in zip(got, want):
+        assert abs(g - w) <= JAX_LOSS_RTOL * abs(w), (got, want)
+    pmax, pmed = dryrun.params_gap(
+        reports[0]["schedule_params"],
+        jax.tree_util.tree_map(np.asarray, params))
+    assert pmax <= 2 * _sum_lr(2 * k, n), pmax
+    assert pmed <= JAX_PARAM_MEDIAN, pmed
 
 
 def test_cnn_param_shardings_split_the_head_on_model():

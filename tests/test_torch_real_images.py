@@ -2,9 +2,11 @@
 the CPU: ``NoseDetector`` and ``MouthDetector`` at the default part width
 320 on the Grace Hopper portrait (``utils/offline_images``), the chain
 ``tests/test_real_images.py::test_part_chain_real_photo`` runs in the JAX
-package. ``process()`` must return equal results, and so must the device
-pass's grouped faces and compacted raw part candidates, slot for slot.
-Skipped where no face-bearing photograph is installed.
+package, and (``full`` tier) ``EyeDetector`` at part width 480, as
+``test_part_chain_real_photo_eye_480`` runs it. ``process()`` must return
+equal results, and so must the device pass's grouped faces and compacted
+raw part candidates, slot for slot. Skipped where no face-bearing
+photograph is installed.
 """
 
 from __future__ import annotations
@@ -13,9 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from nubomedia_vca_tpu.models.eye import EyeDetector as JaxEye
+from nubomedia_vca_tpu.models.eye import EyeDetectorConfig as JaxEyeConfig
 from nubomedia_vca_tpu.models.mouth import MouthDetector as JaxMouth
 from nubomedia_vca_tpu.models.nose import NoseDetector as JaxNose
-from nubomedia_vca_tpu_torch.models import MouthDetector, NoseDetector
+from nubomedia_vca_tpu_torch.models import (EyeDetector, MouthDetector,
+                                            NoseDetector)
+from nubomedia_vca_tpu_torch.models.eye import EyeDetectorConfig
 from nubomedia_vca_tpu_torch.utils.offline_images import offline_photos
 
 torch.set_num_threads(2)
@@ -59,3 +65,26 @@ def test_device_pass_matches_jax(results, gray):
     assert face[1].sum() >= 1, "the face pass finds the portrait's face"
     for g, w in zip(parts[name], want[1][name]):
         np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.full
+def test_eye_480_matches_jax(gray):
+    """The eye at part width 480 (both 2splits cascades, tilted): process()
+    and the device pass's grouped faces and compacted raw candidates of
+    each eye equal the JAX package's, and the left eye fires."""
+    size = (gray.shape[2], gray.shape[1])
+    pdet = EyeDetector(size, EyeDetectorConfig(width_to_process=480),
+                       device="cpu")
+    jdet = JaxEye(size, JaxEyeConfig(width_to_process=480))
+    assert pdet.part_w == 480
+    got, want = pdet.process(gray), jdet.process(gray)
+    assert got == want
+    assert len(got[0]["eye_left"]) >= 1, "the left eye fires at 480"
+    face, parts = pdet._device_pass(gray)
+    jface, jparts = jdet._device_pass(gray)
+    for g, w in zip(face, jface):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert sorted(parts) == sorted(jparts) == ["left", "right"]
+    for name in parts:
+        for g, w in zip(parts[name], jparts[name]):
+            np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
