@@ -5,8 +5,9 @@ face detector (int8 and bf16), the motion tracker, the drawing ops, the
 serving plane (JSON-RPC server, media loop, native ingest), the
 learned detectors' training path (distillation teacher, trainers,
 checkpoints), the multi-device paths over NCCL, the cascade tooling
-(XML conversion, the AdaBoost trainer), and the entry point, the
-evaluation and cascade-training tools and the examples.
+(XML conversion, the AdaBoost trainer), the entry point, the
+evaluation and cascade-training tools and the examples, and the benchmark
+script ``bench_torch.py``.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
@@ -151,6 +152,13 @@ Phases, each printing its findings, any failure ending the run non-zero:
     and ``eval_xml_windows`` on cv2-free windows, equal to the CPU's; each
     ``examples/torch_*.py`` demo as a subprocess on the card at a small
     frame count, all five exiting 0 within 240 s;
+15. benchmark: ``python3 bench_torch.py 64`` as a subprocess with a
+    time limit, its lines printed here: it must exit 0, print every metric
+    of its phases exactly once before its headline lines, finite and
+    positive, the card line first and ``face_detect_720p_fps_per_chip``
+    last, and each timed loop's kernel launches a batch as
+    ``BENCH_LAUNCHES`` says (its own gate, card against CPU, runs inside
+    it); its phases' launches join the kernel line's;
 9. times (CUDA events, kernel and plain version in turns): each kernel at
    the main paths' shapes with its plain version, its bound from the
    shapes and this run's data, and a PyTorch call computing the same
@@ -234,6 +242,8 @@ import torch_eval_trained_cascades  # noqa: E402
 import torch_real_eval  # noqa: E402
 import torch_train_part_cascades  # noqa: E402
 
+import bench_torch  # noqa: E402
+
 FRAME = (1280, 720)
 BATCH = 64
 PART_BATCHES = 2       # consecutive batches of one stream on the part path
@@ -288,6 +298,36 @@ TOOLING_XML = ("haarcascade_frontalface_alt.xml",
 # adds and float32 compares run at
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# phase 15: bench_torch.py at B=BATCH, its metrics and each timed loop's
+# kernel launches a batch (provenance line → step → launches)
+BENCH_TIMEOUT = 540.0
+BENCH_METRICS = (
+    "face_detect_720p_fps_per_chip", "face_detect_720p_fps_per_chip_samples",
+    "device_path_720p_fps", "hbm_gbps_est", "latency_batch_ms_derived",
+    "haar_chain_720p_fps_per_chip", "haar_chain_720p_fps_per_chip_samples",
+    "e2e_async_loop_fps", "e2e_hostloop_fps", "cnn_720p_fps",
+    "cnn_int8_720p_fps", "cnn_parts_720p_fps", "latency_batch_ms_p50",
+    "latency_batch_ms_p99", "e2e_hostloop_fullres_fps",
+    "feeder_multistream_async_fps")
+_ONE_PYRAMID = {"pyramid_dense_phase": 1.0}
+BENCH_LAUNCHES = {
+    "grouped_provenance": {"face_detect_720p_fps_per_chip": _ONE_PYRAMID,
+                           "device_path_720p_fps": _ONE_PYRAMID},
+    "chain_provenance": {"haar_chain_720p_fps_per_chip": {
+        "pyramid_dense_phase": 2.0, "pyramid_dense_phase_wide": 1.0,
+        "dense_level_tilted": 71.0, "tilted_table": 71.0,
+        "integral_tables": 71.0}},
+    "e2e_hostloop_fps_provenance": {"e2e_async_loop_fps": _ONE_PYRAMID,
+                                    "e2e_hostloop_fps": _ONE_PYRAMID},
+    "cnn_provenance": {"cnn_720p_fps": {},
+                       "cnn_int8_720p_fps": {"quantize_int8": 7.0},
+                       "cnn_parts_720p_fps": {}},
+    "latency_provenance": {"latency": _ONE_PYRAMID},
+    "e2e_hostloop_fullres_fps_provenance": {"e2e_hostloop_fullres_fps":
+                                            _ONE_PYRAMID},
+    "feeder_multistream_async_fps_provenance": {
+        "feeder_multistream_async_fps": _ONE_PYRAMID},
+}
 PALLAS = "nubomedia_vca_tpu/ops/pallas"
 CSRC = "nubomedia_vca_tpu_torch/csrc"
 # name → (wrapper, its launch counter, source, TPU kernel replaced). The
@@ -2305,6 +2345,58 @@ def entry_tools_path(dev, gpu) -> dict[str, int]:
     return total
 
 
+def bench_path() -> dict[str, int]:
+    """Phase 15: ``bench_torch.py`` at B=BATCH in a subprocess; its lines
+    are printed here and checked → the launches its phases made."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py"), str(BATCH)],
+        cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"bench_torch: {line}")
+    for line in proc.stderr.splitlines():
+        if line.startswith("bench:"):
+            print(f"bench_torch stderr: {line}")
+    print(f"bench_torch: rc {proc.returncode} after {secs:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    n_head = len(bench_torch.HEADLINE_KEYS)
+    body, head = lines[:-n_head], lines[-n_head:]
+    if lines[0]["metric"] != "card":
+        raise AssertionError("bench_torch: the first line is not the card")
+    if [ln["metric"] for ln in head] != bench_torch.HEADLINE_KEYS[::-1]:
+        raise AssertionError("bench_torch: the headline lines are not last "
+                             f"in order: {[ln['metric'] for ln in head]}")
+    names = [ln["metric"] for ln in body]
+    for name in BENCH_METRICS:
+        if names.count(name) != 1:
+            raise AssertionError(f"bench_torch: {name} printed "
+                                 f"{names.count(name)} times")
+        values = body[names.index(name)]["value"]
+        for v in values if isinstance(values, list) else [values]:
+            if not (isinstance(v, (int, float)) and np.isfinite(v)
+                    and v > 0):
+                raise AssertionError(f"bench_torch: {name} = {values}")
+    got = {ln["metric"]: {k: v["launches_per_batch"]
+                          for k, v in ln["steps"].items()}
+           for ln in body if ln["metric"] in BENCH_LAUNCHES}
+    if got != BENCH_LAUNCHES:
+        raise AssertionError(f"bench_torch launches a batch {got}, expected "
+                             f"{BENCH_LAUNCHES}")
+    total = dict.fromkeys(KERNELS, 0)
+    for ln in body:
+        if ln["metric"].endswith("_launches"):
+            for k, v in ln["value"].items():
+                total[k] += v
+    print(f"bench_torch: every metric once, card line first, headline last, "
+          f"launches a batch as predicted; launches in its phases {total}")
+    return total
+
+
 def times(dev, gpu, face_eng, dets, frames_720, xs, ears,
           ear_frames) -> dict[str, dict]:
     out: dict[str, dict] = {}
@@ -2483,6 +2575,10 @@ def main() -> int:
 
     phase("14 entry, tools and examples")
     for k, v in entry_tools_path(dev, gpu).items():
+        launches[k] += v
+
+    phase("15 benchmark")
+    for k, v in bench_path().items():
         launches[k] += v
 
     phase("9 times")

@@ -6,9 +6,9 @@ PyTorch
 version on the card, and the face, part, ear and learned detectors, the
 motion tracker, the drawing ops and the learned detectors' training path
 (the distillation teacher, train steps, the train-state round trip), the
-multi-device dry run at world size 1, the cascade trainer's GEMM and the
-entry point on CUDA against the port's CPU run (the drawing also against
-its numpy twins).
+multi-device dry run at world size 1, the cascade trainer's GEMM, the
+entry point and the benchmark's gate (``bench_torch.py``) on CUDA against
+the port's CPU run (the drawing also against its numpy twins).
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. On a
 GPU host without JAX, run them with
@@ -797,3 +797,22 @@ def test_entry_on_the_card_equals_cpu(cuda_device):
         assert dense_cuda.pyramid_dense_phase.launches == before + 1
         for g, w in zip(got, cpu_fn(x)):
             assert torch.equal(g.cpu(), w)
+
+
+def test_bench_gate_on_the_card(cuda_device):
+    """bench_torch.py's gate on its first 4 frames: the grouped step, the
+    chain and the learned detectors on the card against the CPU run, with
+    raw face candidates, part candidates and learned boxes found."""
+    import bench_torch
+
+    frames = bench_torch.variant(bench_torch.make_frames(
+        bench_torch.GATE_FRAMES), 0)
+    x = torch.from_numpy(frames).to(cuda_device)
+    found = bench_torch.gate_grouped(bench_torch.grouped_steps(cuda_device),
+                                     x, "grouped")
+    assert found["raw"] > 0
+    assert bench_torch.gate_chain(bench_torch.chain_step(cuda_device)[1],
+                                  x)["parts"] > 0
+    found = bench_torch.gate_cnn(bench_torch.cnn_detectors(cuda_device),
+                                 frames)
+    assert all(v > 0 for v in found.values())

@@ -99,12 +99,14 @@ def test_reconfigure_keeps_tracks_and_swaps_engine(clips):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (found by pkgutil.walk_packages,
-    so a new module is covered without listing it), chip_smoke.py and
-    every ``tools/torch_*.py`` and ``examples/torch_*.py`` leaves jax and
-    the JAX package out of sys.modules."""
+    so a new module is covered without listing it), chip_smoke.py,
+    bench_torch.py and every ``tools/torch_*.py`` and
+    ``examples/torch_*.py`` leaves jax and the JAX package out of
+    sys.modules."""
     code = (
         "import glob, importlib, importlib.util, pkgutil, sys\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
         "scripts = sorted(glob.glob('tools/torch_*.py') + "
         "glob.glob('examples/torch_*.py'))\n"
         "for i, path in enumerate(scripts):\n"
