@@ -32,6 +32,7 @@ def main(argv=None):
     from nubomedia_vca_tpu_torch.utils.synth import face_scene
     from nubomedia_vca_tpu_torch.utils.tracing import TRACER
 
+    TRACER.enabled = True      # the report below reads the run's spans
     W, H = 640, 480
     feeder = StreamFeeder(W, H, batch=8)
     fd = FaceDetector((W, H), device=args.device)

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.color import bgr_to_gray
+from ..utils.tracing import active, count, trace
 
 _RUNNERS: "weakref.WeakSet" = weakref.WeakSet()
 
@@ -219,35 +220,38 @@ class MediaRunner:
         face_boxes = None
         motion_events = None
         rendered: list = []
-        for el in list(self.pipeline.elements):
-            if self._stop.is_set():
-                return
-            try:
-                if hasattr(el, "_config") and hasattr(
-                        el._config, "face_cascade_path"):
-                    # part detector: consumes upstream face boxes
-                    res = el.process(frames, face_boxes=face_boxes,
-                                     stream=stream)
-                elif el.__class__.__name__ in ("NuboFaceDetector",
-                                               "NuboCnnFaceDetector"):
-                    res = el.process(frames, stream=stream,
-                                     events=motion_events)
-                    face_boxes = [
-                        np.array([f.rect() for f in faces])
-                        if faces else None
-                        for faces in res
-                    ]
-                elif el.__class__.__name__ == "NuboTracker":
-                    res = el.process(frames, stream=stream)
-                    motion_events = [blobs if blobs else None
-                                     for blobs in res]
-                else:
-                    res = el.process(frames)
-                rendered.append((el, res))
-            except Exception:  # noqa: BLE001 — one element must not kill
-                import traceback
-                traceback.print_exc()
+        with trace("vca.media.elements"):
+            for el in list(self.pipeline.elements):
+                if self._stop.is_set():
+                    return
+                try:
+                    if hasattr(el, "_config") and hasattr(
+                            el._config, "face_cascade_path"):
+                        # part detector: consumes upstream face boxes
+                        res = el.process(frames, face_boxes=face_boxes,
+                                         stream=stream)
+                    elif el.__class__.__name__ in ("NuboFaceDetector",
+                                                   "NuboCnnFaceDetector"):
+                        res = el.process(frames, stream=stream,
+                                         events=motion_events)
+                        face_boxes = [
+                            np.array([f.rect() for f in faces])
+                            if faces else None
+                            for faces in res
+                        ]
+                    elif el.__class__.__name__ == "NuboTracker":
+                        res = el.process(frames, stream=stream)
+                        motion_events = [blobs if blobs else None
+                                         for blobs in res]
+                    else:
+                        res = el.process(frames)
+                    rendered.append((el, res))
+                except Exception:  # noqa: BLE001 — one element must not kill
+                    import traceback
+                    traceback.print_exc()
         self.frames_processed += len(frames)
+        count("vca.media.steps")
+        count("vca.media.frames", len(frames))
         if self.output or self.on_annotated is not None:
             # detect-downscaled mode: the full-res canvas exists only
             # host-side (retained BGR) — draw with the bit-identical numpy
@@ -265,29 +269,30 @@ class MediaRunner:
         COLOR stream), GRAY8 otherwise. host=True keeps the whole chain in
         numpy (detection boxes are tiny host data; the reference draws on
         the CPU too, kmsfacedetect.cpp:832-850)."""
-        color_mode = getattr(frames, "ndim", 3) == 4
-        # device mode: the batch stays a DEVICE array across the whole
-        # render chain (each el.render is a pure device op); one host
-        # transfer at the end. host mode: numpy end to end.
-        out = frames
-        for el, res in rendered:
-            try:
-                out = el.render(out, res, host=host)
-            except Exception:  # noqa: BLE001
-                import traceback
-                traceback.print_exc()
-        if not color_mode and getattr(out, "ndim", 3) == 4:
-            # gray mode + costume overlay → BGR intermediate; back to Y on
-            # the batch's device
-            out = bgr_to_gray(torch.as_tensor(out))
-        out = out.cpu().numpy() if isinstance(out, torch.Tensor) \
-            else np.asarray(out)
-        if self.on_annotated is not None:
-            self.on_annotated(out, stream)
-        if self.output and hasattr(self.ingest, "send"):
-            for fr in out:
-                if self.ingest.send(stream, fr):
-                    self.frames_sent += 1
+        with trace("vca.media.emit"):
+            color_mode = getattr(frames, "ndim", 3) == 4
+            # device mode: the batch stays a DEVICE array across the whole
+            # render chain (each el.render is a pure device op); one host
+            # transfer at the end. host mode: numpy end to end.
+            out = frames
+            for el, res in rendered:
+                try:
+                    out = el.render(out, res, host=host)
+                except Exception:  # noqa: BLE001
+                    import traceback
+                    traceback.print_exc()
+            if not color_mode and getattr(out, "ndim", 3) == 4:
+                # gray mode + costume overlay → BGR intermediate; back to
+                # Y on the batch's device
+                out = bgr_to_gray(torch.as_tensor(out))
+            out = out.cpu().numpy() if isinstance(out, torch.Tensor) \
+                else np.asarray(out)
+            if self.on_annotated is not None:
+                self.on_annotated(out, stream)
+            if self.output and hasattr(self.ingest, "send"):
+                for fr in out:
+                    if self.ingest.send(stream, fr):
+                        self.frames_sent += 1
 
     def _check_downscale_still_valid(self) -> None:
         """A mid-stream RPC setter (widthToProcess, setMultiScale, a new
@@ -315,12 +320,22 @@ class MediaRunner:
         while not self._stop.is_set():
             self._check_downscale_still_valid()
             color = None
-            if self.color_output:
-                frames, color, pts, streams = self.ingest.collect_color(
-                    self.batch, min_frames=1, wait_ms=50)
-            else:
-                frames, pts, streams = self.ingest.collect(
-                    self.batch, min_frames=1, wait_ms=50)
+            tracing = active()
+            if tracing:
+                waited, collected = (self.ingest.collect_wait_ns,
+                                     self.ingest.collected)
+            with trace("vca.media.collect"):
+                if self.color_output:
+                    frames, color, pts, streams = self.ingest.collect_color(
+                        self.batch, min_frames=1, wait_ms=50)
+                else:
+                    frames, pts, streams = self.ingest.collect(
+                        self.batch, min_frames=1, wait_ms=50)
+            if tracing:
+                # the wait of this collect's frames in the ingest's queue
+                count("vca.ingest.wait_us",
+                      (self.ingest.collect_wait_ns - waited) // 1000)
+                count("vca.ingest.frames", self.ingest.collected - collected)
             if frames.shape[0] == 0:
                 time.sleep(0.005)
                 continue
@@ -328,5 +343,6 @@ class MediaRunner:
             # per-stream so temporal state never crosses streams
             for s in np.unique(streams):
                 sel = streams == s
-                self._step(frames[sel], stream=int(s),
-                           color=None if color is None else color[sel])
+                with trace("vca.media.step", {"stream": int(s)}):
+                    self._step(frames[sel], stream=int(s),
+                               color=None if color is None else color[sel])

@@ -66,6 +66,7 @@ from ..ops.cuda.dense_level_cuda import (DenseLevelPlan, dense_level_tilted,
                                          tilted_fits)
 from ..ops.grouping import group_rectangles_torch
 from ..ops.resize import resize_linear_exact
+from ..utils.tracing import trace
 from .pyramid import LevelSpec, compute_levels
 from .xml_loader import HaarCascade
 
@@ -423,87 +424,95 @@ class CascadeEngine:
         matmul blocks. Patches come from the sum and tilted tables `ii`,
         `iit` [B,sh+1,sw+1] when the dense phase emitted them, else from
         the level image `img` [B,sh,sw] u8."""
-        l, caps = self.levels[li], self._level_caps[li]
-        map_x, map_y = self._maps_dev[li]
-        B = alive.shape[0]
-        ny, nx, step = l.ny, l.nx, l.ystep
-        nwin = ny * nx
-        overflow = torch.zeros((B,), dtype=torch.bool, device=alive.device)
-        alive_flat = alive.reshape(B, nwin)
-        vnf_flat = vnf.reshape(B, nwin)
+        with trace("vca.engine.survivor"):
+            l, caps = self.levels[li], self._level_caps[li]
+            map_x, map_y = self._maps_dev[li]
+            B = alive.shape[0]
+            ny, nx, step = l.ny, l.nx, l.ystep
+            nwin = ny * nx
+            overflow = torch.zeros((B,), dtype=torch.bool, device=alive.device)
+            alive_flat = alive.reshape(B, nwin)
+            vnf_flat = vnf.reshape(B, nwin)
 
-        if not self._blocks:
-            # no stage past the dense block: emit the dense survivors
-            cap = min(nwin, self.MAX_CAPACITY)
-            sel, sel_alive, count = self._compact(alive_flat, cap)
-            overflow |= count > cap
-            win_ids = sel
-        else:
-            # first compaction + one-time patch gather
-            cap0 = caps[0]
-            sel, sel_alive, count = self._compact(alive_flat, cap0)
-            overflow |= count > cap0
-            win_ids = sel
-            y, x = (sel // nx) * step, (sel % nx) * step
-            k0 = sel.shape[1]
-            if ii is None:
-                idx = (y * l.sw + x)[:, :, None] + self._img_poff_dev[li]
-                pimg = img.reshape(B, -1).gather(1, idx.reshape(B, -1)).reshape(
-                    B, k0, self._ph - 1, self._pw - 1)
-                local = torch.cumsum(
-                    torch.cumsum(pimg.to(torch.int32), dim=-1,
-                                 dtype=torch.int32),
-                    dim=-2, dtype=torch.int32)
-                patch = F.pad(local, (1, 0, 1, 0))
+            if not self._blocks:
+                # no stage past the dense block: emit the dense survivors
+                cap = min(nwin, self.MAX_CAPACITY)
+                sel, sel_alive, count = self._compact(alive_flat, cap)
+                overflow |= count > cap
+                win_ids = sel
             else:
-                idx = ((y * (l.sw + 1) + x)[:, :, None]
-                       + self._tab_poff_dev[li]).reshape(B, -1)
-                patch = ii.reshape(B, -1).gather(1, idx).reshape(
-                    B, k0, self._ph, self._pw)
-                patch = (patch - patch[:, :, :1, :] - patch[:, :, :, :1]
-                         + patch[:, :, :1, :1])
-            patch = patch.reshape(B, k0, -1).to(self._patch_dtype)
-            patch_t = None
-            if self._uses_tilt:
-                patch_t = iit.reshape(B, -1).gather(1, idx).reshape(B, k0, -1)
-                patch_t = (patch_t - patch_t[:, :, :1]).to(self._patch_dtype)
-            vnf_sel = vnf_flat.gather(1, sel)
+                # first compaction + one-time patch gather
+                cap0 = caps[0]
+                sel, sel_alive, count = self._compact(alive_flat, cap0)
+                overflow |= count > cap0
+                win_ids = sel
+                y, x = (sel // nx) * step, (sel % nx) * step
+                k0 = sel.shape[1]
+                if ii is None:
+                    idx = (y * l.sw + x)[:, :, None] + self._img_poff_dev[li]
+                    pimg = img.reshape(B, -1).gather(
+                        1, idx.reshape(B, -1)).reshape(
+                            B, k0, self._ph - 1, self._pw - 1)
+                    local = torch.cumsum(
+                        torch.cumsum(pimg.to(torch.int32), dim=-1,
+                                     dtype=torch.int32),
+                        dim=-2, dtype=torch.int32)
+                    patch = F.pad(local, (1, 0, 1, 0))
+                else:
+                    idx = ((y * (l.sw + 1) + x)[:, :, None]
+                           + self._tab_poff_dev[li]).reshape(B, -1)
+                    patch = ii.reshape(B, -1).gather(1, idx).reshape(
+                        B, k0, self._ph, self._pw)
+                    patch = (patch - patch[:, :, :1, :] - patch[:, :, :, :1]
+                             + patch[:, :, :1, :1])
+                patch = patch.reshape(B, k0, -1).to(self._patch_dtype)
+                patch_t = None
+                if self._uses_tilt:
+                    patch_t = iit.reshape(B, -1).gather(1, idx).reshape(
+                        B, k0, -1)
+                    patch_t = (patch_t - patch_t[:, :, :1]).to(
+                        self._patch_dtype)
+                vnf_sel = vnf_flat.gather(1, sel)
 
-            for bi, blk in enumerate(self._blocks_dev):
-                if bi > 0 and caps[bi] < sel_alive.shape[1]:
-                    # re-compact among current survivors
-                    sel2, sel_alive, count = self._compact(sel_alive, caps[bi])
-                    overflow |= count > caps[bi]
-                    win_ids = win_ids.gather(1, sel2)
-                    rows = sel2[:, :, None].expand(-1, -1, patch.shape[2])
-                    patch = patch.gather(1, rows)
-                    if patch_t is not None:
-                        patch_t = patch_t.gather(1, rows)
-                    vnf_sel = vnf_sel.gather(1, sel2)
-                passed = self._block_eval(blk, patch, patch_t, vnf_sel)
-                sel_alive = sel_alive & passed
+                for bi, blk in enumerate(self._blocks_dev):
+                    if bi > 0 and caps[bi] < sel_alive.shape[1]:
+                        # re-compact among current survivors
+                        sel2, sel_alive, count = self._compact(sel_alive,
+                                                               caps[bi])
+                        overflow |= count > caps[bi]
+                        win_ids = win_ids.gather(1, sel2)
+                        rows = sel2[:, :, None].expand(-1, -1, patch.shape[2])
+                        patch = patch.gather(1, rows)
+                        if patch_t is not None:
+                            patch_t = patch_t.gather(1, rows)
+                        vnf_sel = vnf_sel.gather(1, sel2)
+                    passed = self._block_eval(blk, patch, patch_t, vnf_sel)
+                    sel_alive = sel_alive & passed
 
-        bx = map_x[win_ids % nx]
-        by = map_y[win_ids // nx]
-        boxes = torch.stack(
-            [bx, by, torch.full_like(bx, l.out_w), torch.full_like(bx, l.out_h)],
-            dim=-1).to(torch.int32)
-        return boxes, sel_alive, overflow
+            bx = map_x[win_ids % nx]
+            by = map_y[win_ids // nx]
+            boxes = torch.stack(
+                [bx, by, torch.full_like(bx, l.out_w),
+                 torch.full_like(bx, l.out_h)],
+                dim=-1).to(torch.int32)
+            return boxes, sel_alive, overflow
 
     def _dense_level(self, gray: torch.Tensor, li: int):
         """Tilted level `li` → (img, ii, iit, vnf, alive)."""
-        l = self.levels[li]
-        same = (l.sw, l.sh) == (self.image_w, self.image_h)
-        img = gray if same else resize_linear_exact(gray, (l.sw, l.sh))
-        return (img, *dense_level_tilted(img, self._level_plans[li]))
+        with trace("vca.engine.dense"):
+            l = self.levels[li]
+            same = (l.sw, l.sh) == (self.image_w, self.image_h)
+            img = gray if same else resize_linear_exact(gray, (l.sw, l.sh))
+            return (img, *dense_level_tilted(img, self._level_plans[li]))
 
     def _detect_impl(self, gray: torch.Tensor):
         """gray [B, H, W] uint8 → (boxes [B, TC, 4] i32, valid [B, TC] bool,
         overflow [B] bool)."""
         dense: dict[int, tuple] = {}
         if self._plan is not None:
-            for li, (img_l, vnf, alive) in zip(
-                    self._pyramid_lis, pyramid_dense_phase(gray, self._plan)):
+            with trace("vca.engine.dense"):
+                levels = pyramid_dense_phase(gray, self._plan)
+            for li, (img_l, vnf, alive) in zip(self._pyramid_lis, levels):
                 dense[li] = (gray if img_l is None else img_l, None, None,
                              vnf, alive)
         out_boxes, out_valid = [], []
@@ -549,24 +558,26 @@ class CascadeEngine:
         """Device minNeighbors grouping on the raw-candidate output: compact
         accepted windows to RAW_GROUP_CAP, run the exact fixed-capacity
         groupRectangles, compact grouped classes to OUT_GROUP_CAP."""
-        cap = min(self.RAW_GROUP_CAP, valid.shape[1])
-        sel, sel_alive, count = self._compact(valid, cap)
-        overflow = overflow | (count > cap)
-        cand = boxes.gather(1, sel[:, :, None].expand(-1, -1, 4))
-        avg, gvalid, weights = group_rectangles_torch(
-            cand, sel_alive, min_neighbors)
-        k = min(self.OUT_GROUP_CAP, avg.shape[1])
-        sel2, g_alive, _ = self._compact(gvalid, k)
-        out = avg.gather(1, sel2[:, :, None].expand(-1, -1, 4))
-        wts = weights.gather(1, sel2)
-        return out, g_alive, wts, overflow
+        with trace("vca.engine.group"):
+            cap = min(self.RAW_GROUP_CAP, valid.shape[1])
+            sel, sel_alive, count = self._compact(valid, cap)
+            overflow = overflow | (count > cap)
+            cand = boxes.gather(1, sel[:, :, None].expand(-1, -1, 4))
+            avg, gvalid, weights = group_rectangles_torch(
+                cand, sel_alive, min_neighbors)
+            k = min(self.OUT_GROUP_CAP, avg.shape[1])
+            sel2, g_alive, _ = self._compact(gvalid, k)
+            out = avg.gather(1, sel2[:, :, None].expand(-1, -1, 4))
+            wts = weights.gather(1, sel2)
+            return out, g_alive, wts, overflow
 
     def _compact_raw_impl(self, boxes, valid, overflow):
-        cap = min(self.RAW_GROUP_CAP, valid.shape[1])
-        sel, sel_alive, count = self._compact(valid, cap)
-        overflow = overflow | (count > cap)
-        out = boxes.gather(1, sel[:, :, None].expand(-1, -1, 4))
-        return out, sel_alive, overflow
+        with trace("vca.engine.group"):
+            cap = min(self.RAW_GROUP_CAP, valid.shape[1])
+            sel, sel_alive, count = self._compact(valid, cap)
+            overflow = overflow | (count > cap)
+            out = boxes.gather(1, sel[:, :, None].expand(-1, -1, 4))
+            return out, sel_alive, overflow
 
     def compact_raw(self, raw):
         """(boxes, valid, overflow) → same, compacted to RAW_GROUP_CAP slots

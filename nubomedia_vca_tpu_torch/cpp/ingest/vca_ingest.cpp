@@ -21,6 +21,10 @@
 //     connection (vca_ingest_send) — the media-plane product the reference
 //     delivers by mutating the frame in place and letting it continue to
 //     autovideosink (run_plugin.sh:3).
+//   * each queued frame carries a steady_clock stamp; collect adds the
+//     frames it drains and their waits in the queue to two running sums
+//     (vca_ingest_collected, vca_ingest_collect_wait_ns) that the media
+//     loop reads while tracing.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 dependency).
 //
@@ -62,7 +66,14 @@ struct Slot {
   std::vector<uint8_t> color;  // tight BGR copy when retain_color is on
   int64_t pts;
   int32_t stream;
+  int64_t pushed_ns;  // steady_clock when queued (CLOCK_MONOTONIC)
 };
+
+int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
 
 // One full-duplex TCP connection (= one stream). The reader thread owns the
 // fd lifecycle: it joins the writer before closing, so the fd is closed
@@ -130,6 +141,10 @@ struct Ingest {
   std::condition_variable cv;
   std::deque<Slot> ready;
   int64_t dropped = 0;
+  // frames collected, and the sum of their waits in `ready` (collect time
+  // less push stamp), for the media loop's ingest-wait counters
+  int64_t collected = 0;
+  int64_t collect_wait_ns = 0;
   // retain a tight BGR copy of each color push so the media loop can draw
   // annotations on the COLOR frame (the reference mutates the color frame
   // in place, kmsfacedetect.cpp:857-898); full-resolution pushes only
@@ -241,6 +256,18 @@ int64_t vca_ingest_dropped(void* p) {
   auto* h = static_cast<Ingest*>(p);
   std::lock_guard<std::mutex> lk(h->mu);
   return h->dropped;
+}
+
+int64_t vca_ingest_collected(void* p) {
+  auto* h = static_cast<Ingest*>(p);
+  std::lock_guard<std::mutex> lk(h->mu);
+  return h->collected;
+}
+
+int64_t vca_ingest_collect_wait_ns(void* p) {
+  auto* h = static_cast<Ingest*>(p);
+  std::lock_guard<std::mutex> lk(h->mu);
+  return h->collect_wait_ns;
 }
 
 // Total annotated frames dropped across live connections because a client
@@ -370,6 +397,7 @@ int vca_ingest_push(void* p, int stream, const uint8_t* data, int stride,
       h->ready.pop_front();  // drop-oldest backpressure policy
       h->dropped++;
     }
+    s.pushed_ns = now_ns();
     h->ready.push_back(std::move(s));
   }
   h->cv.notify_one();
@@ -395,6 +423,7 @@ int vca_ingest_collect(void* p, uint8_t* out, int64_t* pts_out,
   const size_t frame_sz =
       h->work ? static_cast<size_t>(h->work->w) * h->work->h
               : static_cast<size_t>(h->width) * h->height;
+  const int64_t now = now_ns();
   int n = 0;
   while (n < max_frames && !h->ready.empty()) {
     Slot& s = h->ready.front();
@@ -407,9 +436,11 @@ int vca_ingest_collect(void* p, uint8_t* out, int64_t* pts_out,
     std::memcpy(out + n * frame_sz, s.gray.data(), frame_sz);
     pts_out[n] = s.pts;
     stream_out[n] = s.stream;
+    h->collect_wait_ns += now - s.pushed_ns;
     h->ready.pop_front();
     n++;
   }
+  h->collected += n;
   return n;
 }
 
@@ -444,6 +475,7 @@ int vca_ingest_collect_color(void* p, uint8_t* out, uint8_t* color_out,
       h->work ? static_cast<size_t>(h->work->w) * h->work->h
               : static_cast<size_t>(h->width) * h->height;
   const size_t color_sz = static_cast<size_t>(h->width) * h->height;
+  const int64_t now = now_ns();
   int n = 0;
   while (n < max_frames && !h->ready.empty()) {
     Slot& s = h->ready.front();
@@ -461,9 +493,11 @@ int vca_ingest_collect_color(void* p, uint8_t* out, uint8_t* color_out,
     }
     pts_out[n] = s.pts;
     stream_out[n] = s.stream;
+    h->collect_wait_ns += now - s.pushed_ns;
     h->ready.pop_front();
     n++;
   }
+  h->collected += n;
   return n;
 }
 

@@ -2,7 +2,8 @@
 NumPy fallback so everything runs without the native build.
 
 The PyTorch port of ``nubomedia_vca_tpu/cpp/ingest_binding.py``. The port
-keeps its own byte-identical copy of ``vca_ingest.cpp`` and builds it at
+keeps its own copy of ``vca_ingest.cpp`` (the JAX package's, plus the
+queue-wait sums the media loop's tracing reads) and builds it at
 first use (never at import) with ``g++ -O2 -shared -fPIC -pthread`` into the
 directory the CUDA kernels build into (``ops/cuda/_build.build_dir``:
 ``$NUBOMEDIA_VCA_KERNEL_DIR``, else the checkout's ``build/torch_kernels/``,
@@ -10,6 +11,11 @@ else ``~/.cache/nubomedia_vca_tpu_torch/kernels/``), as
 ``libvca_ingest_<digest>.so`` keyed by the source and the flags; it never
 writes into the source tree. Both feeders run on the host: frames leave
 them as numpy arrays, and their consumers upload them to their device.
+
+Both stamp each queued frame on the monotonic clock (``steady_clock``,
+``time.monotonic_ns``) and, at collect, add the frames drained and their
+waits in the queue to two running sums: ``collected`` and
+``collect_wait_ns``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 from collections import deque
 
 import numpy as np
@@ -94,6 +101,10 @@ def _load():
     lib.vca_ingest_pending.argtypes = [ctypes.c_void_p]
     lib.vca_ingest_dropped.restype = ctypes.c_int64
     lib.vca_ingest_dropped.argtypes = [ctypes.c_void_p]
+    lib.vca_ingest_collected.restype = ctypes.c_int64
+    lib.vca_ingest_collected.argtypes = [ctypes.c_void_p]
+    lib.vca_ingest_collect_wait_ns.restype = ctypes.c_int64
+    lib.vca_ingest_collect_wait_ns.argtypes = [ctypes.c_void_p]
     lib.vca_ingest_out_dropped.restype = ctypes.c_int64
     lib.vca_ingest_out_dropped.argtypes = [ctypes.c_void_p]
     lib.vca_ingest_listen.restype = ctypes.c_int
@@ -197,6 +208,16 @@ class NativeIngest:
         return self._lib.vca_ingest_dropped(self._h)
 
     @property
+    def collected(self) -> int:
+        """Frames collected so far."""
+        return self._lib.vca_ingest_collected(self._h)
+
+    @property
+    def collect_wait_ns(self) -> int:
+        """Summed wait of the collected frames in the queue (ns)."""
+        return self._lib.vca_ingest_collect_wait_ns(self._h)
+
+    @property
     def out_dropped(self) -> int:
         """Annotated frames dropped by slow readers (live connections)."""
         return self._lib.vca_ingest_out_dropped(self._h)
@@ -240,6 +261,8 @@ class PythonIngest:
         self._out_queues: dict[int, deque] = {}
         self.dropped = 0
         self.out_dropped = 0
+        self.collected = 0
+        self.collect_wait_ns = 0
         self._retain_color = False
 
     def set_work(self, work_w: int = 0, work_h: int = 0) -> None:
@@ -268,7 +291,6 @@ class PythonIngest:
             q = self._out_queues[stream] = deque()
 
             def writer():
-                import time
                 try:
                     while stream in self._conns:
                         try:
@@ -317,17 +339,21 @@ class PythonIngest:
             if len(self._q) >= self.capacity:
                 self._q.popleft()
                 self.dropped += 1
-            self._q.append((frame.astype(np.uint8), color, pts, stream))
+            self._q.append((frame.astype(np.uint8), color, pts, stream,
+                            time.monotonic_ns()))
 
     def _drain(self, max_frames: int):
         frames, colors, pts, streams = [], [], [], []
         with self._mu:
+            now = time.monotonic_ns()
             while self._q and len(frames) < max_frames:
-                f, c, p, s = self._q.popleft()
+                f, c, p, s, pushed = self._q.popleft()
                 frames.append(f)
                 colors.append(c)
                 pts.append(p)
                 streams.append(s)
+                self.collect_wait_ns += now - pushed
+            self.collected += len(frames)
         return frames, colors, pts, streams
 
     def collect(self, max_frames: int, min_frames: int = 1, wait_ms: int = 0):

@@ -24,6 +24,7 @@ from ..cascade.engine import _resolve_device, get_engine
 from ..cascade.paths import PKG_ASSETS_DIR
 from ..ops.histogram import equalize_hist
 from ..ops.resize import resize_linear_exact
+from ..utils.tracing import active, count, trace
 from .base import (DetectorConfig, GopScheduler, EventGate, bucket_pad,
                    gated_gop_mask, multi_scale_to_pyramid_factor)
 
@@ -204,7 +205,9 @@ class FaceDetector:
     def _device_detect(self, gray):
         """Host frames [B,H,W] / [H,W] uint8 → the engine's raw candidates
         (boxes, valid, overflow) on the detector's device."""
-        gray = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
+        with trace("vca.filter.upload"):
+            gray = torch.from_numpy(np.ascontiguousarray(gray)).to(
+                self.device)
         if gray.ndim == 2:
             gray = gray[None]
         work = resize_linear_exact(gray, (self.work_w, self.work_h))
@@ -216,16 +219,24 @@ class FaceDetector:
 
         Grouping runs on the device (engine.group_device); only the grouped
         [B, K≤64] output crosses to the host. The batch is padded to a
-        power-of-two bucket (base.bucket_pad), as in the JAX package."""
-        gray, n_real = bucket_pad(np.asarray(gray) if np.ndim(gray) != 2
-                                  else np.asarray(gray)[None])
+        power-of-two bucket (base.bucket_pad), as in the JAX package.
+        While tracing, the engine's overflow flags come back too and count
+        the frames whose survivors outgrew its capacity."""
+        with trace("vca.filter.upload"):
+            gray, n_real = bucket_pad(np.asarray(gray) if np.ndim(gray) != 2
+                                      else np.asarray(gray)[None])
         raw = self._device_detect(gray)
         if self.config.min_neighbors:
-            boxes, valid, _, _ = self.engine.group_device(
+            boxes, valid, _, overflow = self.engine.group_device(
                 raw, self.config.min_neighbors)
         else:
-            boxes, valid, _ = raw
-        boxes, valid = boxes.cpu().numpy(), valid.cpu().numpy()
+            boxes, valid, overflow = raw
+        with trace("vca.filter.fetch"):
+            boxes, valid = boxes.cpu().numpy(), valid.cpu().numpy()
+            if active():
+                count("vca.filter.frames_detected", n_real)
+                count("vca.engine.overflow_frames",
+                      int(overflow[:n_real].sum()))
         out = []
         for b in range(n_real):
             grouped = boxes[b][valid[b]]
@@ -241,19 +252,27 @@ class FaceDetector:
         events: optional per-frame list; a non-None entry marks an arriving
         upstream motion event (the tracker→face chain of
         kmsfacedetect.cpp:698-707) that refuels the detect-event gate."""
-        gray = np.asarray(gray)
-        if gray.ndim == 2:
-            gray = gray[None]
-        n = gray.shape[0]
-        mask = gated_gop_mask(self.gop, self.gate, n, events)
-        results: list[list[TrackedFace]] = []
-        det = self.detect_boxes(gray[mask]) if mask.any() else []
-        det_iter = iter(det)
-        tracks = self._tracks_for(stream)
-        for i in range(n):
-            if mask[i]:
-                faces = tracks.update(next(det_iter), self.config.track_threshold)
-            else:
-                faces = tracks.faces
-            results.append(list(faces))
-        return results
+        with trace("vca.filter.process"):
+            gray = np.asarray(gray)
+            if gray.ndim == 2:
+                gray = gray[None]
+            n = gray.shape[0]
+            count("vca.filter.frames", n)
+            mask = gated_gop_mask(self.gop, self.gate, n, events)
+            results: list[list[TrackedFace]] = []
+            det = []
+            if mask.any():
+                with trace("vca.filter.upload"):
+                    gray = gray[mask]
+                det = self.detect_boxes(gray)
+            with trace("vca.filter.track"):
+                det_iter = iter(det)
+                tracks = self._tracks_for(stream)
+                for i in range(n):
+                    if mask[i]:
+                        faces = tracks.update(next(det_iter),
+                                              self.config.track_threshold)
+                    else:
+                        faces = tracks.faces
+                    results.append(list(faces))
+            return results

@@ -5,8 +5,9 @@
   ``clamp``), ``Tracer.report``, ``FrameBatch``, the port's
   ``PythonIngest`` against the JAX package's (frames, pts, stream ids,
   color retention, ``set_work`` downscale, drop-oldest), the port's
-  ``NativeIngest`` (its own copy of ``vca_ingest.cpp``, built with g++
-  into a temporary build directory) against its ``PythonIngest``, and
+  ``NativeIngest`` (its own copy of ``vca_ingest.cpp``, the JAX package's
+  C interface plus the queue-wait sums, built with g++ into a temporary
+  build directory) against its ``PythonIngest``, and
   ``StreamFeeder`` padding.
 * The filter chain: ``VcaPipeline`` (tracker → motion-gated face) and
   ``MediaPipeline`` + ``NuboFaceDetector`` + event-gated
@@ -33,6 +34,7 @@ import dataclasses
 import io
 import itertools
 import os
+import re
 import subprocess
 import sys
 import time
@@ -275,10 +277,17 @@ def test_native_ingest_builds_outside_the_source_tree(native_lib):
     assert built[0].startswith("libvca_ingest_")
     src_dir = ingest_binding.SRC.parent
     assert sorted(p.name for p in src_dir.iterdir()) == ["vca_ingest.cpp"]
-    with open(ingest_binding.SRC, "rb") as f, open(
+    with open(ingest_binding.SRC) as f, open(
             os.path.join(REPO, "nubomedia_vca_tpu", "cpp", "ingest",
-                         "vca_ingest.cpp"), "rb") as g:
-        assert f.read() == g.read()
+                         "vca_ingest.cpp")) as g:
+        port, jax_ = f.read(), g.read()
+    # every C function of the JAX package's copy, signature for signature;
+    # the port adds the two queue-wait sums
+    sig = re.compile(r"^\w[^\n;]*\bvca_ingest_\w+\([^)]*\)", re.M)
+    added = set(sig.findall(port)) - set(sig.findall(jax_))
+    assert set(sig.findall(jax_)) <= set(sig.findall(port))
+    assert sorted(added) == ["int64_t vca_ingest_collect_wait_ns(void* p)",
+                             "int64_t vca_ingest_collected(void* p)"]
     assert isinstance(ingest_binding.make_ingest(8, 8),
                       ingest_binding.NativeIngest)
 
