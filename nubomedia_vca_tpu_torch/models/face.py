@@ -22,11 +22,10 @@ import torch
 
 from ..cascade.engine import _resolve_device, get_engine
 from ..cascade.paths import PKG_ASSETS_DIR
-from ..ops.histogram import equalize_hist
-from ..ops.resize import resize_linear_exact
 from ..utils.tracing import active, count, trace
-from .base import (DetectorConfig, GopScheduler, EventGate, bucket_pad,
-                   gated_gop_mask, multi_scale_to_pyramid_factor)
+from .base import (DetectorConfig, GopScheduler, EventGate, StagingRing,
+                   gated_gop_mask, multi_scale_to_pyramid_factor,
+                   select_frames)
 
 # the port's bundled, byte-identical copy of OpenCV's cascade
 DEFAULT_FACE_CASCADE = os.path.join(PKG_ASSETS_DIR,
@@ -143,9 +142,10 @@ class FaceDetector:
     device.
 
     `process(gray_batch)` returns a list per frame of TrackedFace. Host
-    frames are copied to `device` (the card unless the caller asks for
-    another); resize → equalize → multiscale cascade → grouping run there,
-    tracking on the host. A CUDA device runs the cascade's dense phase as
+    frames go to `device` (the card unless the caller asks for another)
+    through the detector's staging ring (`base.StagingRing`); resize →
+    equalize → multiscale cascade → grouping run there, tracking on the
+    host. A CUDA device runs the cascade's dense phase as
     the hand-written kernel; a CUDA request on a host without CUDA raises.
     """
 
@@ -163,6 +163,7 @@ class FaceDetector:
         self.gate = EventGate(cfg.detect_event, cfg.process_x_every_4_frames,
                               scaled=False)
         self.tracks = [FaceTracks() for _ in range(n_streams)]
+        self._ring = StagingRing(self.device)
 
     def _apply_geometry(self) -> None:
         """(Re)derive working resolution + engine from the current config.
@@ -203,29 +204,27 @@ class FaceDetector:
 
     # device part: resize + equalize + cascade
     def _device_detect(self, gray):
-        """Host frames [B,H,W] / [H,W] uint8 → the engine's raw candidates
-        (boxes, valid, overflow) on the detector's device."""
-        with trace("vca.filter.upload"):
-            gray = torch.from_numpy(np.ascontiguousarray(gray)).to(
-                self.device)
-        if gray.ndim == 2:
-            gray = gray[None]
-        work = resize_linear_exact(gray, (self.work_w, self.work_h))
-        work = equalize_hist(work)
+        """Host frames [B,H,W] / [H,W] uint8, or a `base.FrameSelection`
+        of them → the engine's raw candidates (boxes, valid, overflow) on
+        the detector's device, for the batch padded to a power-of-two
+        bucket as in the JAX package. The frames reach the device, and
+        are resized and equalized there, through the detector's staging
+        ring (`base.StagingRing`)."""
+        (work,), _ = self._ring.stage(select_frames(gray),
+                                      [(self.work_w, self.work_h)])
         return self.engine.detect_raw(work)
 
     def detect_boxes(self, gray) -> list[np.ndarray]:
-        """Grouped face boxes in original coordinates (no tracking).
+        """Grouped face boxes in original coordinates (no tracking), one
+        array per frame (per selected frame of a `base.FrameSelection`).
 
         Grouping runs on the device (engine.group_device); only the grouped
-        [B, K≤64] output crosses to the host. The batch is padded to a
-        power-of-two bucket (base.bucket_pad), as in the JAX package.
-        While tracing, the engine's overflow flags come back too and count
-        the frames whose survivors outgrew its capacity."""
-        with trace("vca.filter.upload"):
-            gray, n_real = bucket_pad(np.asarray(gray) if np.ndim(gray) != 2
-                                      else np.asarray(gray)[None])
-        raw = self._device_detect(gray)
+        [B, K≤64] output crosses to the host. While tracing, the engine's
+        overflow flags come back too and count the frames whose survivors
+        outgrew its capacity."""
+        sel = select_frames(gray)
+        n_real = len(sel.index)
+        raw = self._device_detect(sel)
         if self.config.min_neighbors:
             boxes, valid, _, overflow = self.engine.group_device(
                 raw, self.config.min_neighbors)
@@ -262,9 +261,7 @@ class FaceDetector:
             results: list[list[TrackedFace]] = []
             det = []
             if mask.any():
-                with trace("vca.filter.upload"):
-                    gray = gray[mask]
-                det = self.detect_boxes(gray)
+                det = self.detect_boxes(select_frames(gray, mask))
             with trace("vca.filter.track"):
                 det_iter = iter(det)
                 tracks = self._tracks_for(stream)

@@ -22,11 +22,10 @@ import torch
 
 from ..cascade.engine import _resolve_device, get_engine
 from ..ops.grouping import group_rectangles_np
-from ..ops.histogram import equalize_hist
-from ..ops.resize import resize_linear_exact
 from ..utils.tracing import active, count, trace
-from .base import (DetectorConfig, GopScheduler, EventGate, bucket_pad,
-                   gated_gop_mask, multi_scale_to_pyramid_factor)
+from .base import (DetectorConfig, GopScheduler, EventGate, StagingRing,
+                   gated_gop_mask, multi_scale_to_pyramid_factor,
+                   select_frames)
 from .face import DEFAULT_FACE_CASCADE
 
 
@@ -104,6 +103,7 @@ class PartDetectorBase:
         self.frame_w, self.frame_h = frame_size
         self._part_cascade_paths = dict(part_cascades)
         self._apply_geometry()
+        self._ring = StagingRing(self.device)
         self._streams: dict[int, _StreamState] = {}
         self._active = self._stream_state(0)
 
@@ -173,21 +173,19 @@ class PartDetectorBase:
 
     # ------------------------------------------------------------ device part
     def _device_pass(self, gray):
-        """Host frames [B,H,W] uint8 → (face_raw, part_raw) as host arrays.
+        """Host frames [B,H,W] / [H,W] uint8, or a `base.FrameSelection`
+        of them → (face_raw, part_raw) as host arrays, for the batch
+        padded to a power-of-two bucket as in the JAX package.
 
-        On the device: both resolutions resized, equalized and detected;
-        face candidates minNeighbors-grouped and part candidates compacted
-        to the engine's RAW_GROUP_CAP, so only O(detections) arrays cross
-        to the host, never the padded window capacity."""
-        with trace("vca.filter.upload"):
-            gray = torch.from_numpy(np.ascontiguousarray(gray)).to(
-                self.device)
-        if gray.ndim == 2:
-            gray = gray[None]
-        face_img = equalize_hist(
-            resize_linear_exact(gray, (self.face_w, self.face_h)))
-        part_img = equalize_hist(
-            resize_linear_exact(gray, (self.part_w, self.part_h)))
+        The frames reach the device through the detector's staging ring
+        (`base.StagingRing`), which resizes and equalizes them to both
+        resolutions there; then both are detected, face candidates
+        minNeighbors-grouped and part candidates compacted to the
+        engine's RAW_GROUP_CAP, so only O(detections) arrays cross to the
+        host, never the padded window capacity."""
+        (face_img, part_img), _ = self._ring.stage(
+            select_frames(gray), [(self.face_w, self.face_h),
+                                  (self.part_w, self.part_h)])
         face_raw = self.face_engine.group_device(
             self.face_engine.detect_raw(face_img), self.FACE_MIN_NEIGHBORS)
         part_raw = {name: eng.compact_raw(eng.detect_raw(part_img))
@@ -283,10 +281,9 @@ class PartDetectorBase:
             mask = gated_gop_mask(self.gop, self.gate, n, events)
             if not mask.any():
                 return [self._idle_result() for _ in range(n)]
-            # power-of-two batch bucketing, as in the JAX package
-            with trace("vca.filter.upload"):
-                sub, n_real = bucket_pad(gray[mask])
-            face_raw, part_raw = self._device_pass(sub)
+            sel = select_frames(gray, mask)
+            n_real = len(sel.index)
+            face_raw, part_raw = self._device_pass(sel)
             if active():
                 # frames on which any engine of the call overflowed
                 overflow = face_raw[3][:n_real].copy()

@@ -35,6 +35,8 @@ from nubomedia_vca_tpu_torch.models import (CnnFaceDetector, EarDetector,
                                             MouthDetector, NoseDetector,
                                             QuantizedCnnFaceDetector)
 from nubomedia_vca_tpu_torch.models import cnn, distill, tracker
+from nubomedia_vca_tpu_torch.models.base import (StagingRing, bucket_pad,
+                                                 select_frames)
 from nubomedia_vca_tpu_torch.models.face import (DEFAULT_FACE_CASCADE,
                                                  FaceDetector)
 from nubomedia_vca_tpu_torch.ops import quant
@@ -401,6 +403,41 @@ def test_int8_detector_cuda_equals_cpu(cuda_device):
         got = as_t(gpu.process(b))
         assert got == as_t(cpu.process(b))
     assert sum(len(f) for f in got) > 0
+
+
+def _pageable_work(frames, size, device):
+    """The upload the staging ring replaced: the padded batch in one
+    pageable copy, then resized and equalized whole."""
+    padded, _ = bucket_pad(np.ascontiguousarray(frames))
+    return equalize_hist(resize_linear_exact(
+        torch.from_numpy(padded).to(device), size))
+
+
+@pytest.mark.parametrize("reverse", [False, True],
+                         ids=["forward", "reversed"])
+def test_staging_ring_equals_pageable_upload(cuda_device, reverse):
+    """A 64-frame 720p batch through the ring's pinned slots, in chunks,
+    equals the pageable upload bit for bit at both part-detector sizes."""
+    clip = face_clip(64, 1280, 720, seed=11)
+    frames = clip[::-1] if reverse else clip
+    sizes = [(160, 90), (320, 180)]
+    ring = StagingRing(cuda_device)
+    works, n_real = ring.stage(select_frames(frames), sizes)
+    assert n_real == 64 and len(ring.slots[0]) < 64
+    assert all(slot.is_pinned() for slot in ring.slots)
+    for work, size in zip(works, sizes):
+        assert torch.equal(work, _pageable_work(frames, size, cuda_device))
+
+
+def test_staging_ring_calls_back_to_back(cuda_device):
+    """Three calls with different clips and no synchronisation between
+    them: each work batch is its own clip's (a slot reused before its
+    copy ended would carry another clip's frames)."""
+    clips = [face_clip(24, 1280, 720, seed=s) for s in (3, 4, 5)]
+    ring = StagingRing(cuda_device)
+    got = [ring.stage(select_frames(c), [(160, 90)])[0][0] for c in clips]
+    for clip, work in zip(clips, got):
+        assert torch.equal(work, _pageable_work(clip, (160, 90), cuda_device))
 
 
 def test_bf16_detector_cuda_matches_cpu(cuda_device):
