@@ -21,7 +21,8 @@ Per batch of work images:
     level), which also emits the sum and tilted tables.
 * **Compaction**: surviving windows are compacted to a static per-level
   capacity with ``torch.topk`` (earliest index first); a per-frame overflow
-  flag reports survivors beyond capacity.
+  flag reports survivors beyond capacity, and ``widened()`` gives the
+  engine at twice its capacities for running such frames again.
 * **Matmul blocks**: for survivors the window's patch of the sum table (and
   of the tilted table) is gathered — from the level image, rebuilt as the
   patch-local integral, where no table left the dense phase — and each
@@ -51,6 +52,7 @@ device; a level that no route takes raises, and nothing falls back.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import os
@@ -302,20 +304,7 @@ class CascadeEngine:
             self._blocks.append(self._make_block(w_lo, w_hi, s_lo, s_hi, frac))
             s_lo = s_hi
 
-        # per-level capacities for each block
-        self._level_caps: list[list[int]] = []
-        for l in self.levels:
-            caps = []
-            prev = l.n_windows
-            for blk in self._blocks:
-                cap = int(min(prev, self.MAX_CAPACITY,
-                              max(64, int(np.ceil(l.n_windows * blk.cap_frac)))))
-                caps.append(cap)
-                prev = cap
-            self._level_caps.append(caps)
-        self.total_capacity = sum(
-            caps[-1] if caps else l.n_windows
-            for caps, l in zip(self._level_caps, self.levels))
+        self._set_capacities(1)
 
         # original-pixel coordinate maps
         self._maps = []
@@ -340,6 +329,37 @@ class CascadeEngine:
                                np.arange(self._pw - 1), indexing="ij")
         self._img_patch_dy = dyi.reshape(-1)
         self._img_patch_dx = dxi.reshape(-1)
+
+    def _set_capacities(self, scale: int) -> None:
+        """Per-level survivor capacities of each block, and the raw
+        candidates entering grouping, at `scale` times the plan's."""
+        self.capacity_scale = scale
+        self._level_caps: list[list[int]] = []
+        for l in self.levels:
+            caps = []
+            prev = l.n_windows
+            for blk in self._blocks:
+                cap = int(min(prev, self.MAX_CAPACITY * scale,
+                              max(64, int(np.ceil(
+                                  l.n_windows * blk.cap_frac * scale)))))
+                caps.append(cap)
+                prev = cap
+            self._level_caps.append(caps)
+        self.total_capacity = sum(
+            caps[-1] if caps else l.n_windows
+            for caps, l in zip(self._level_caps, self.levels))
+        self._wider = None
+
+    def widened(self) -> "CascadeEngine":
+        """This engine at twice its capacities, for frames whose overflow
+        flag it set: the same tables and kernels, built once and kept.
+        Doubling ends: at full capacity (every window of every level, and
+        every accepted window into grouping) no flag can be set."""
+        if self._wider is None:
+            wide = copy.copy(self)
+            wide._set_capacities(2 * self.capacity_scale)
+            self._wider = wide
+        return self._wider
 
     def _make_block(self, w_lo, w_hi, s_lo, s_hi, frac) -> _Block:
         c = self.cascade
@@ -436,7 +456,7 @@ class CascadeEngine:
 
             if not self._blocks:
                 # no stage past the dense block: emit the dense survivors
-                cap = min(nwin, self.MAX_CAPACITY)
+                cap = min(nwin, self.MAX_CAPACITY * self.capacity_scale)
                 sel, sel_alive, count = self._compact(alive_flat, cap)
                 overflow |= count > cap
                 win_ids = sel
@@ -559,7 +579,8 @@ class CascadeEngine:
         accepted windows to RAW_GROUP_CAP, run the exact fixed-capacity
         groupRectangles, compact grouped classes to OUT_GROUP_CAP."""
         with trace("vca.engine.group"):
-            cap = min(self.RAW_GROUP_CAP, valid.shape[1])
+            cap = min(self.RAW_GROUP_CAP * self.capacity_scale,
+                      valid.shape[1])
             sel, sel_alive, count = self._compact(valid, cap)
             overflow = overflow | (count > cap)
             cand = boxes.gather(1, sel[:, :, None].expand(-1, -1, 4))
@@ -573,7 +594,8 @@ class CascadeEngine:
 
     def _compact_raw_impl(self, boxes, valid, overflow):
         with trace("vca.engine.group"):
-            cap = min(self.RAW_GROUP_CAP, valid.shape[1])
+            cap = min(self.RAW_GROUP_CAP * self.capacity_scale,
+                      valid.shape[1])
             sel, sel_alive, count = self._compact(valid, cap)
             overflow = overflow | (count > cap)
             out = boxes.gather(1, sel[:, :, None].expand(-1, -1, 4))

@@ -203,45 +203,68 @@ class FaceDetector:
         return self.tracks[stream]
 
     # device part: resize + equalize + cascade
-    def _device_detect(self, gray):
+    def _work(self, gray) -> torch.Tensor:
         """Host frames [B,H,W] / [H,W] uint8, or a `base.FrameSelection`
-        of them → the engine's raw candidates (boxes, valid, overflow) on
-        the detector's device, for the batch padded to a power-of-two
-        bucket as in the JAX package. The frames reach the device, and
-        are resized and equalized there, through the detector's staging
-        ring (`base.StagingRing`)."""
+        of them → the work batch on the detector's device, padded to a
+        power-of-two bucket as in the JAX package. The frames reach the
+        device, and are resized and equalized there, through the
+        detector's staging ring (`base.StagingRing`)."""
         (work,), _ = self._ring.stage(select_frames(gray),
                                       [(self.work_w, self.work_h)])
-        return self.engine.detect_raw(work)
+        return work
+
+    def _device_detect(self, gray):
+        """Frames as `_work` takes them → the engine's raw candidates
+        (boxes, valid, overflow) on the detector's device, for the
+        bucket-padded batch."""
+        return self.engine.detect_raw(self._work(gray))
+
+    def _grouped(self, engine, work) -> tuple[np.ndarray, ...]:
+        """`engine` on the work batch → host (boxes, valid, overflow):
+        grouped on the device (engine.group_device) unless min_neighbors
+        is 0, so only the grouped [B, K≤64] output crosses to the host."""
+        raw = engine.detect_raw(work)
+        if self.config.min_neighbors:
+            boxes, valid, _, overflow = engine.group_device(
+                raw, self.config.min_neighbors)
+        else:
+            boxes, valid, overflow = raw
+        with trace("vca.filter.fetch"):
+            return (boxes.cpu().numpy(), valid.cpu().numpy(),
+                    overflow.cpu().numpy())
 
     def detect_boxes(self, gray) -> list[np.ndarray]:
         """Grouped face boxes in original coordinates (no tracking), one
         array per frame (per selected frame of a `base.FrameSelection`).
 
-        Grouping runs on the device (engine.group_device); only the grouped
-        [B, K≤64] output crosses to the host. While tracing, the engine's
-        overflow flags come back too and count the frames whose survivors
-        outgrew its capacity."""
+        A frame whose survivors outgrew one of the engine's capacities
+        (its overflow flag) runs again on the engine at twice the
+        capacities (`CascadeEngine.widened`), until none is dropped, so
+        every frame's boxes are those of an engine without capacities.
+        While tracing, ``vca.engine.overflow_frames`` counts the frames
+        flagged by the first pass and ``vca.engine.rerun_frames`` the
+        frames run again, a frame once for each wider engine it took."""
         sel = select_frames(gray)
         n_real = len(sel.index)
-        raw = self._device_detect(sel)
-        if self.config.min_neighbors:
-            boxes, valid, _, overflow = self.engine.group_device(
-                raw, self.config.min_neighbors)
-        else:
-            boxes, valid, overflow = raw
-        with trace("vca.filter.fetch"):
-            boxes, valid = boxes.cpu().numpy(), valid.cpu().numpy()
-            if active():
-                count("vca.filter.frames_detected", n_real)
-                count("vca.engine.overflow_frames",
-                      int(overflow[:n_real].sum()))
-        out = []
-        for b in range(n_real):
-            grouped = boxes[b][valid[b]]
-            out.append(np.rint(grouped * self.scale_back).astype(np.int32)
-                       if len(grouped) else np.zeros((0, 4), np.int32))
-        return out
+        work = self._work(sel)
+        boxes, valid, overflow = self._grouped(self.engine, work)
+        per_frame = [boxes[b][valid[b]] for b in range(n_real)]
+        redo = np.flatnonzero(overflow[:n_real])
+        if active():
+            count("vca.filter.frames_detected", n_real)
+            count("vca.engine.overflow_frames", len(redo))
+        engine, reruns = self.engine, 0
+        while len(redo):
+            reruns += len(redo)
+            engine = engine.widened()
+            boxes, valid, overflow = self._grouped(
+                engine, work[torch.from_numpy(redo).to(work.device)])
+            for k, b in enumerate(redo):
+                per_frame[b] = boxes[k][valid[k]]
+            redo = redo[overflow[:len(redo)]]
+        count("vca.engine.rerun_frames", reruns)
+        return [np.rint(g * self.scale_back).astype(np.int32) if len(g)
+                else np.zeros((0, 4), np.int32) for g in per_frame]
 
     def process(self, gray, stream: int = 0,
                 events=None) -> list[list[TrackedFace]]:

@@ -18,11 +18,19 @@ area filter and distance merge run on the host with the reference's exact
 iteration order (__join_objects, gstnubotracker.cpp:171-200), copied from
 the JAX package.
 
+Two compactions of the components: ``tracker_step`` keeps the JAX
+package's (``max_blobs`` slots, earliest root first); ``Tracker.process``
+reports every seeded component in segmentMotion's order, the raster order
+of each component's first seed pixel (``segment_motion``), since
+``join_objects`` keeps the first merge partner it finds.
+
 The JAX package's ``lax.while_loop`` becomes a Python loop whose exit test
 reads a device flag once every ``SEG_CHECK_EVERY`` iterations (one host
 sync per check). That is exact: labels only decrease, so an unchanged
 label map after a group of iterations means every iteration of the group
-was at the fixed point, where an iteration changes nothing.
+was at the fixed point, where an iteration changes nothing. On a CUDA
+device ``Tracker.process`` captures a group of iterations once as a CUDA
+graph: a frame's ~700 small launches are what set the pace otherwise.
 
 Units: timestamps are pts seconds as float32, as in the JAX package (the
 reference's CPU-clock milliseconds collapse the MHI to the current
@@ -38,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..cascade.engine import _resolve_device
+from ..utils.tracing import count, trace
 
 # label-propagation iterations between two reads of the "changed" flag
 SEG_CHECK_EVERY = 4
@@ -56,7 +65,9 @@ class TrackerConfig:
     events_ms: int = 30001
     mhi_duration: float = 0.2
     seg_thresh: float = 0.05
-    max_blobs: int = 32         # fixed device capacity for segmentation
+    # slots of `tracker_step`'s compaction; `Tracker.process` reports every
+    # component whatever this is
+    max_blobs: int = 32
 
 
 @dataclasses.dataclass
@@ -89,74 +100,172 @@ def init_state(h: int, w: int,
     )
 
 
+_SHIFTS = ((1, 0), (-1, 0), (0, 1), (0, -1))
+
+
+def _links(mhi, seg_thresh) -> torch.Tensor:
+    """[4, H, W] bool: per direction of ``_SHIFTS``, whether a pixel and
+    its neighbour there are linked: both MHI values non-zero, within
+    `seg_thresh` of each other, and the neighbour inside the frame (a
+    roll wraps around the edge)."""
+    H, W = mhi.shape
+    dev = mhi.device
+    rows = torch.arange(H, device=dev)[:, None]
+    cols = torch.arange(W, device=dev)[None, :]
+    edges = (rows == 0, rows == H - 1, cols == 0, cols == W - 1)
+    # zero-MHI pixels are never part of a motion segment (OpenCV pre-marks
+    # them in the floodfill mask)
+    out = []
+    for shift, edge in zip(_SHIFTS, edges):
+        nb_val = torch.roll(mhi, shift, dims=(0, 1))
+        out.append(((mhi - nb_val).abs() <= seg_thresh) & ~edge
+                   & (mhi > 0) & (nb_val > 0))
+    return torch.stack(out)
+
+
+def _step(lab, links):
+    """One iteration: the least label over a pixel and its linked
+    neighbours, then pointer jumping (adopt the label of my label's
+    pixel)."""
+    n = lab.numel()
+    m = lab
+    for shift, connected in zip(_SHIFTS, links):
+        nb_lab = torch.roll(lab, shift, dims=(0, 1))
+        m = torch.minimum(m, torch.where(connected, nb_lab, n))
+    return torch.minimum(m, m.reshape(-1)[m])
+
+
+class _GraphedSteps:
+    """``SEG_CHECK_EVERY`` iterations over [H, W] maps on a CUDA device,
+    captured once as a CUDA graph: a group of iterations is one launch in
+    place of about 60, so the card, not the host's issue of the launches,
+    sets the pace. Inputs and outputs live in the fixed buffers
+    ``links`` and ``labels``; ``before`` holds the labels the group
+    started from."""
+
+    def __init__(self, h: int, w: int, device: torch.device):
+        self.links = torch.zeros((4, h, w), dtype=torch.bool, device=device)
+        self.first = torch.arange(h * w, dtype=torch.int64,
+                                  device=device).reshape(h, w)
+        self.labels = self.first.clone()
+        self.before = self.first.clone()
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):       # warm-up before capture
+                self._group()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self._group()
+
+    def _group(self) -> None:
+        self.before.copy_(self.labels)
+        lab = self.labels
+        for _ in range(SEG_CHECK_EVERY):
+            lab = _step(lab, self.links)
+        self.labels.copy_(lab)
+
+
+def _propagate(mhi, seg_thresh, iterations=None,
+               graphed: _GraphedSteps | None = None) -> torch.Tensor:
+    """Component labels of the 4-neighbor |Δmhi| <= seg_thresh graph over
+    the non-zero MHI pixels: [H*W] int64, each pixel labelled with its
+    component's root, the component's raster-first pixel (a zero-MHI
+    pixel is its own root). Runs the iterations through `graphed` when
+    given (the same iterations, launched as one graph a group). Appends
+    the label-propagation iterations run to `iterations` when given."""
+    H, W = mhi.shape
+    links = _links(mhi, seg_thresh)
+    n_iter = 0
+    if graphed is None:
+        labels = torch.arange(H * W, dtype=torch.int64,
+                              device=mhi.device).reshape(H, W)
+        while True:
+            before = labels
+            for _ in range(SEG_CHECK_EVERY):
+                labels = _step(labels, links)
+            n_iter += SEG_CHECK_EVERY
+            if torch.equal(labels, before):
+                break
+    else:
+        graphed.links.copy_(links)
+        graphed.labels.copy_(graphed.first)
+        while True:
+            graphed.graph.replay()
+            n_iter += SEG_CHECK_EVERY
+            if torch.equal(graphed.labels, graphed.before):
+                break
+        labels = graphed.labels.clone()
+    if iterations is not None:
+        iterations.append(n_iter)
+    return labels.reshape(-1)
+
+
+def _reduce(lab_flat, init, src, how):
+    """Per-root reduction of the per-pixel `src` ([H*W] int32)."""
+    out = torch.full(lab_flat.shape, init, dtype=torch.int32,
+                     device=lab_flat.device)
+    return out.scatter_reduce_(0, lab_flat, src, how, include_self=True)
+
+
+def _boxes(lab_flat, sel, H, W):
+    """[K,4] int32 x,y,w,h: the bounding boxes of the components whose
+    roots are `sel`."""
+    dev = lab_flat.device
+    ys = torch.arange(H, device=dev, dtype=torch.int32)[:, None].expand(
+        H, W).reshape(-1)
+    xs = torch.arange(W, device=dev, dtype=torch.int32)[None, :].expand(
+        H, W).reshape(-1)
+    big = 1 << 30
+    rx, ry = (_reduce(lab_flat, big, xs, "amin")[sel],
+              _reduce(lab_flat, big, ys, "amin")[sel])
+    rw = _reduce(lab_flat, -1, xs, "amax")[sel] - rx + 1
+    rh = _reduce(lab_flat, -1, ys, "amax")[sel] - ry + 1
+    return torch.stack([rx, ry, rw, rh], dim=-1)
+
+
 def _segment(mhi, ts, seg_thresh, max_blobs, iterations=None):
     """Seeded connected components over the 4-neighbor |Δmhi| <= seg_thresh
-    graph. Returns (rects [K,4] int32 x,y,w,h, valid [K] bool); appends the
+    graph, compacted to `max_blobs` slots: the earliest roots first.
+    Returns (rects [K,4] int32 x,y,w,h, valid [K] bool); appends the
     label-propagation iterations run to `iterations` when given."""
     H, W = mhi.shape
     n = H * W
-    dev = mhi.device
-    flat_idx = torch.arange(n, dtype=torch.int64, device=dev)
-    rows = torch.arange(H, device=dev)[:, None]
-    cols = torch.arange(W, device=dev)[None, :]
-    # per direction: the shift and where its roll wraps around the edge
-    shifts = (((1, 0), (rows == 0).expand(H, W)),
-              ((-1, 0), (rows == H - 1).expand(H, W)),
-              ((0, 1), (cols == 0).expand(H, W)),
-              ((0, -1), (cols == W - 1).expand(H, W)))
-    # zero-MHI pixels are never part of a motion segment (OpenCV pre-marks
-    # them in the floodfill mask)
-    links = []
-    for shift, edge in shifts:
-        nb_val = torch.roll(mhi, shift, dims=(0, 1))
-        links.append((shift, ((mhi - nb_val).abs() <= seg_thresh) & ~edge
-                      & (mhi > 0) & (nb_val > 0)))
-
-    def step(lab):
-        m = lab
-        for shift, connected in links:
-            nb_lab = torch.roll(lab, shift, dims=(0, 1))
-            m = torch.minimum(m, torch.where(connected, nb_lab, n))
-        # pointer jumping: adopt the label of my label's pixel
-        return torch.minimum(m, m.reshape(-1)[m])
-
-    labels = flat_idx.reshape(H, W)
-    n_iter = 0
-    while True:
-        before = labels
-        for _ in range(SEG_CHECK_EVERY):
-            labels = step(labels)
-        n_iter += SEG_CHECK_EVERY
-        if torch.equal(labels, before):
-            break
-    if iterations is not None:
-        iterations.append(n_iter)
-
-    lab_flat = labels.reshape(-1)
-
-    def reduce(init, src, how):
-        out = torch.full((n,), init, dtype=torch.int32, device=dev)
-        return out.scatter_reduce_(0, lab_flat, src, how, include_self=True)
-
+    lab_flat = _propagate(mhi, seg_thresh, iterations)
+    flat_idx = torch.arange(n, dtype=torch.int64, device=mhi.device)
     seeds = (mhi == ts).reshape(-1).to(torch.int32)
-    seeded = reduce(0, seeds, "amax") > 0
-    ys = rows.expand(H, W).reshape(-1).to(torch.int32)
-    xs = cols.expand(H, W).reshape(-1).to(torch.int32)
-    big = 1 << 30
-    xmin, ymin = reduce(big, xs, "amin"), reduce(big, ys, "amin")
-    xmax, ymax = reduce(-1, xs, "amax"), reduce(-1, ys, "amax")
-
+    seeded = _reduce(lab_flat, 0, seeds, "amax") > 0
     is_root = (lab_flat == flat_idx) & seeded
     # compact to capacity: earliest roots first (root keys are distinct; a
     # zero-key slot is masked by `valid` below)
-    keys = torch.where(is_root, torch.arange(n, 0, -1, device=dev), 0)
+    keys = torch.where(is_root, torch.arange(n, 0, -1, device=mhi.device), 0)
     sel = torch.topk(keys, max_blobs).indices
     valid = is_root[sel]
-    rx, ry = xmin[sel], ymin[sel]
-    rw = xmax[sel] - rx + 1
-    rh = ymax[sel] - ry + 1
-    rects = torch.stack([rx, ry, rw, rh], dim=-1)
-    return torch.where(valid[:, None], rects, 0), valid
+    return torch.where(valid[:, None], _boxes(lab_flat, sel, H, W), 0), valid
+
+
+def segment_motion(mhi, ts, seg_thresh, iterations=None,
+                   graphed: _GraphedSteps | None = None) -> torch.Tensor:
+    """cv::motempl::segmentMotion's rects: every component of the
+    4-neighbor |Δmhi| <= seg_thresh graph over the non-zero MHI pixels
+    that holds a pixel of timestamp `ts`, as [K,4] int32 x,y,w,h, however
+    many there are, in the raster order of each component's first such
+    (seed) pixel, the order in which segmentMotion's scan starts their
+    flood fills. Appends the label-propagation iterations run to
+    `iterations` when given; propagates through `graphed` when given.
+    Reads the number of components (one sync)."""
+    H, W = mhi.shape
+    n = H * W
+    lab_flat = _propagate(mhi, seg_thresh, iterations, graphed)
+    flat_idx = torch.arange(n, dtype=torch.int64, device=mhi.device)
+    seed = ((mhi == ts) & (mhi > 0)).reshape(-1)
+    first_seed = _reduce(lab_flat, n, torch.where(seed, flat_idx, n).to(
+        torch.int32), "amin")
+    roots = torch.nonzero((lab_flat == flat_idx) & (first_seed < n))[:, 0]
+    sel = roots[torch.argsort(first_seed[roots])]
+    return _boxes(lab_flat, sel, H, W)
 
 
 def _motion_gradient(mhi, delta1, delta2):
@@ -195,10 +304,10 @@ def _as_uint8(x, dev: torch.device) -> torch.Tensor:
     return x.to(dev, torch.uint8)
 
 
-def tracker_step(state: TrackerState, gray, ts, *, threshold, mhi_duration,
-                 seg_thresh, max_blobs, iterations=None):
-    """One frame of the tracker recurrence on the state's device. Returns
-    (new_state, rects, valid, mask, orient)."""
+def _update(state: TrackerState, gray, ts, threshold, mhi_duration):
+    """absdiff, threshold and updateMotionHistory of one frame → (the new
+    state, the frame's timestamp as a float32 tensor). The first frame of
+    a state leaves its MHI as it is."""
     dev = state.mhi.device
     gray = _as_uint8(gray, dev)
     diff = (gray.to(torch.int32) - state.prev_gray.to(torch.int32)).abs()
@@ -208,12 +317,21 @@ def tracker_step(state: TrackerState, gray, ts, *, threshold, mhi_duration,
     mhi = torch.where(silh, ts, torch.where(
         state.mhi < ts - mhi_duration, 0.0, state.mhi))
     mhi = torch.where(state.initialized, mhi, state.mhi)  # first frame: no-op
+    return TrackerState(prev_gray=gray, mhi=mhi,
+                        initialized=torch.ones((), dtype=torch.bool,
+                                               device=dev)), ts
+
+
+def tracker_step(state: TrackerState, gray, ts, *, threshold, mhi_duration,
+                 seg_thresh, max_blobs, iterations=None):
+    """One frame of the tracker recurrence on the state's device. Returns
+    (new_state, rects, valid, mask, orient), the rects compacted to
+    `max_blobs` slots, earliest component roots first."""
+    new_state, ts = _update(state, gray, ts, threshold, mhi_duration)
+    mhi = new_state.mhi
     rects, valid = _segment(mhi, ts, seg_thresh, max_blobs, iterations)
     valid = valid & state.initialized
     mask, orient = _motion_gradient(mhi, 0.05, 0.5)
-    new_state = TrackerState(prev_gray=gray, mhi=mhi,
-                             initialized=torch.ones((), dtype=torch.bool,
-                                                    device=dev))
     return new_state, rects, valid, mask, orient
 
 
@@ -289,6 +407,7 @@ class Tracker:
         self._states: dict[int, TrackerState] = {
             0: init_state(self.h, self.w, self.device)}
         self._frame_idx: dict[int, int] = {0: 0}
+        self._graphed: _GraphedSteps | None = None    # on a CUDA device
 
     # stream-0 views keep the single-stream surface
     @property
@@ -316,31 +435,49 @@ class Tracker:
     def process(self, gray_frames,
                 stream: int = 0) -> list[list[tuple[int, int, int, int]]]:
         """Consecutive frames [N,H,W] (or [H,W]) of one stream → per-frame
-        blob lists. The frames are uploaded once and the blob slots of all
-        N frames come back to the host in one copy."""
-        gray_frames = np.asarray(gray_frames)
-        if gray_frames.ndim == 2:
-            gray_frames = gray_frames[None]
-        cfg = self.config
-        state = self._states.get(stream)
-        if state is None:
-            state = init_state(self.h, self.w, self.device)
-            self._frame_idx[stream] = 0
-        idx = self._frame_idx[stream]
-        frames = _as_uint8(gray_frames, self.device)
-        all_rects, all_valid = [], []
-        for fr in frames:
-            ts = idx / self.fps
-            state, rects, valid, _, _ = tracker_step(
-                state, fr, ts,
-                threshold=cfg.threshold, mhi_duration=cfg.mhi_duration,
-                seg_thresh=cfg.seg_thresh, max_blobs=cfg.max_blobs)
-            all_rects.append(rects)
-            all_valid.append(valid)
-            idx += 1
-        rects = torch.stack(all_rects).cpu().numpy()
-        valid = torch.stack(all_valid).cpu().numpy()
-        self._states[stream] = state
-        self._frame_idx[stream] = idx
-        return [join_objects(r[v], cfg.min_area, cfg.max_area, cfg.distance)
-                for r, v in zip(rects, valid)]
+        blob lists: segmentMotion's components (`segment_motion`: every
+        one, in its order), then the area filter and merge. The frames
+        are uploaded once and the rects of all N frames come back to the
+        host in one copy. No motion gradient is computed: no blob depends
+        on it. On a CUDA device the label propagation launches a CUDA
+        graph a group of iterations (`_GraphedSteps`, captured on the
+        first call)."""
+        with trace("vca.tracker.process", {"stream": stream}):
+            gray_frames = np.asarray(gray_frames)
+            if gray_frames.ndim == 2:
+                gray_frames = gray_frames[None]
+            cfg = self.config
+            state = self._states.get(stream)
+            if state is None:
+                state = init_state(self.h, self.w, self.device)
+                self._frame_idx[stream] = 0
+            idx = self._frame_idx[stream]
+            count("vca.tracker.frames", len(gray_frames))
+            with trace("vca.tracker.upload"):
+                frames = _as_uint8(gray_frames, self.device)
+            if self._graphed is None and self.device.type == "cuda":
+                self._graphed = _GraphedSteps(self.h, self.w, self.device)
+            all_rects, iters = [], []
+            for fr in frames:
+                state, ts = _update(state, fr, idx / self.fps,
+                                    cfg.threshold, cfg.mhi_duration)
+                with trace("vca.tracker.segment"):
+                    all_rects.append(segment_motion(
+                        state.mhi, ts, cfg.seg_thresh, iters,
+                        self._graphed))
+                idx += 1
+            # a copy of the last frame: a view would keep the call's whole
+            # batch of frames on the device for as long as the stream lives
+            self._states[stream] = dataclasses.replace(
+                state, prev_gray=state.prev_gray.clone())
+            self._frame_idx[stream] = idx
+            sizes = [len(r) for r in all_rects]
+            count("vca.tracker.seg_iterations", sum(iters))
+            count("vca.tracker.blobs_seeded", sum(sizes))
+            with trace("vca.tracker.fetch"):
+                rects = torch.cat(all_rects).cpu().numpy()
+            with trace("vca.tracker.join"):
+                bounds = np.cumsum([0] + sizes)
+                return [join_objects(rects[lo:hi], cfg.min_area,
+                                     cfg.max_area, cfg.distance)
+                        for lo, hi in zip(bounds[:-1], bounds[1:])]

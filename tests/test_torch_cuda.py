@@ -534,6 +534,25 @@ def test_tracker_step_cuda_equals_cpu(cuda_device):
     assert gpu.process(clip) == cpu.process(clip)
 
 
+def test_tracker_graphed_propagation_equals_eager(cuda_device):
+    """The label propagation launched as a CUDA graph a group of
+    iterations gives the eager loop's labels and iteration count on every
+    frame of a clip, one graph reused from frame to frame."""
+    clip = blob_clip(12)
+    state = tracker.init_state(240, 320, cuda_device)
+    graphed = tracker._GraphedSteps(240, 320, cuda_device)
+    moved = 0
+    for i, fr in enumerate(clip):
+        state, _ = tracker._update(state, fr, i / 30.0, 20, 0.2)
+        it_e, it_g = [], []
+        want = tracker._propagate(state.mhi, 0.05, it_e)
+        got = tracker._propagate(state.mhi, 0.05, it_g, graphed)
+        assert torch.equal(got, want), i
+        assert it_g == it_e, i
+        moved += int(it_e[0] > tracker.SEG_CHECK_EVERY)
+    assert moved > 0
+
+
 @pytest.mark.parametrize("mode", ["rect", "circle", "overlay"])
 def test_drawing_cuda_equals_twin(cuda_device, mode):
     """Rect and circle on the card equal the numpy twins; the blend equals

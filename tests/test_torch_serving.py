@@ -14,7 +14,8 @@
   ``NuboNoseDetector`` at 320x240, ``widthToProcess(160)``, through the
   media loop's thread: events, wire strings and annotated frames equal the
   JAX objects' on the same clip (the nose, not the eye: the JAX eye engines
-  take minutes to compile).
+  take minutes to compile). The JAX chain's tracker keeps 128 components
+  a frame, past the clip's 74, since the port's keeps every one.
 * Remote objects: the learned detector's int8 ⇄ bf16 swap keeps its
   tracks, live ``setThreshold``/``setMultiScale``, and
   ``CnnFaceDetector.reconfigure`` against the JAX detector's; the learned
@@ -56,6 +57,7 @@ from nubomedia_vca_tpu.models import cnn_parts as jcnn_parts
 from nubomedia_vca_tpu.models.face import FaceDetector as JaxFace
 from nubomedia_vca_tpu.models.face import FaceDetectorConfig as JaxFaceConfig
 from nubomedia_vca_tpu.models.tracker import Tracker as JaxTracker
+from nubomedia_vca_tpu.models.tracker import TrackerConfig as JaxTrackerConfig
 from nubomedia_vca_tpu.pipeline import events as jevents
 from nubomedia_vca_tpu.pipeline import graph as jgraph
 from nubomedia_vca_tpu.pipeline import scheduler as jscheduler
@@ -359,7 +361,13 @@ def clip():
 
 
 def test_vca_pipeline_tracker_to_face_matches_jax(clip):
-    """Tracker motion events feed the face detector's detect-event gate."""
+    """Tracker motion events feed the face detector's detect-event gate.
+    The clip's second frame seeds 74 motion components (the face's first
+    motion, not yet joined by an older trail); the port reports them all,
+    so the JAX tracker is given room for them. At its default of 32 it
+    drops 42, and that frame's second and third blobs come out as
+    (141, 73, 60, 119) and (149, 80, 35, 10), not (115, 73, 86, 119) and
+    (149, 80, 35, 27)."""
     def chain(g, tracker, face):
         return (g.VcaPipeline()
                 .add(g.FilterNode("tracker", tracker, "tracker"))
@@ -369,7 +377,8 @@ def test_vca_pipeline_tracker_to_face_matches_jax(clip):
     port = chain(graph, Tracker((W, H), device="cpu"),
                  FaceDetector((W, H), FaceDetectorConfig(detect_event=1),
                               device="cpu"))
-    jax_ = chain(jgraph, JaxTracker((W, H)),
+    jax_ = chain(jgraph,
+                 JaxTracker((W, H), JaxTrackerConfig(max_blobs=128)),
                  JaxFace((W, H), JaxFaceConfig(detect_event=1)))
     for half in (clip[:4], clip[4:]):
         got, want = port.process(half), jax_.process(half)

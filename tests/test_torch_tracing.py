@@ -8,6 +8,8 @@
 * The media loop counts the ingest's queue wait with both ingests.
 * The benchmark's readers of these spans (``vcabench/metrics/``) give a
   number on a CPU trace and nothing without the spans.
+* The tracker's spans and counters record only while the gate is open,
+  and the motion archive cell's readers read them.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from nubomedia_vca_tpu_torch.cascade.engine import CascadeEngine
 from nubomedia_vca_tpu_torch.cpp import ingest_binding
 from nubomedia_vca_tpu_torch.models.face import FaceDetector
 from nubomedia_vca_tpu_torch.models.nose import NoseDetector
+from nubomedia_vca_tpu_torch.models.tracker import Tracker
 from nubomedia_vca_tpu_torch.utils import tracing
 from nubomedia_vca_tpu_torch.utils.synth import face_scene
 from vcabench.frozen import profile as bench_profile
@@ -261,3 +264,102 @@ def test_live_readers(tracer, name, want):
         tracer.sections[span].count = 2
         tracer.sections[span].total_s = total
     assert read({}) == pytest.approx(want)
+
+
+# ------------------------------------------------------------- the tracker
+TRACKER_SPANS = ("vca.tracker.upload", "vca.tracker.segment",
+                 "vca.tracker.fetch", "vca.tracker.join")
+
+
+@pytest.fixture(scope="module")
+def motion_clip():
+    """Eight frames of a square moving right over flat grey."""
+    clip = np.full((8, H, W), 100, np.uint8)
+    for t in range(8):
+        clip[t, 60:90, 40 + 5 * t:70 + 5 * t] = 200
+    return clip
+
+
+def test_tracker_spans_only_under_the_gate(motion_clip, tracer,
+                                           ranges_opened):
+    off = Tracker((W, H), device="cpu").process(motion_clip)
+    assert ranges_opened == []
+    assert not tracer.sections and not tracer.counters
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = Tracker((W, H), device="cpu").process(motion_clip)
+    assert on == off and any(off)
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.name.startswith("vca.")]
+    (lo, hi), = [(s, e) for n, s, e in spans if n == "vca.tracker.process"]
+    assert {n for n, _, _ in spans} == {"vca.tracker.process",
+                                        *TRACKER_SPANS}
+    assert all(lo <= s <= e <= hi for _, s, e in spans)
+    assert sum(n == "vca.tracker.segment" for n, _, _ in spans) == 8
+    c = tracer.counters
+    assert c["vca.tracker.frames"] == 8
+    assert c["vca.tracker.seg_iterations"] >= 8 * 4
+    assert c["vca.tracker.blobs_seeded"] >= 7      # the first frame: none
+
+
+@pytest.fixture
+def traced_tracker_call(motion_clip, tracer):
+    """A tracker call traced as the motion archive cell traces its calls,
+    with the counters it left."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("vcabench.process"):
+            Tracker((W, H), device="cpu").process(motion_clip)
+    return prof
+
+
+@pytest.mark.parametrize("name", ["segment_ms.tracker",
+                                  "seg_iterations.tracker",
+                                  "blobs_seeded.tracker",
+                                  "device_idle_share.tracker"])
+def test_tracker_readers(traced_tracker_call, untraced_call, tracer, name):
+    read = _reader(name)
+    got = read(_ctx(traced_tracker_call))
+    assert isinstance(got, float) and got > 0
+    if name == "device_idle_share.tracker":
+        assert got == 100.0               # the CPU: no device activity
+        return
+    tracer.counters.clear()
+    assert read(_ctx(untraced_call)) is None
+
+
+class _Event:
+    def __init__(self, name, device_us):
+        self.name, self.device_time_total = name, device_us
+        self.device_type = torch.autograd.DeviceType.CPU
+
+
+class _Prof:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def test_step_roofline_reader(traced_tracker_call):
+    read = _reader("step_roofline.tracker")
+    ctx = {"calls": 2, "pool": np.zeros((16, 64, 1, 1), np.uint8),
+           "cfg": {"frame": [1280, 720]}}
+    # 128 frames of 11 B a pixel at 3.35 TB/s: 387.2 µs against 1 s
+    prof = _Prof([_Event("vca.tracker.process", 6e5), _Event("x", 9e9),
+                  _Event("vca.tracker.process", 4e5)])
+    assert read(dict(ctx, prof=prof)) == pytest.approx(
+        100 * 128 * 11 * 1280 * 720 / 3.35e12)
+    # no device time inside the ranges (a CPU trace, or the parent's
+    # program without them): nothing to read
+    assert read(dict(ctx, prof=traced_tracker_call)) is None
+    assert read(dict(ctx, prof=_Prof([]))) is None
+
+
+def test_rerun_share_reader(tracer):
+    read = _reader("rerun_share.archive")
+    tracer.counters.update({"vca.filter.frames_detected": 64})
+    assert read({}) is None               # a program that never re-runs
+    tracer.counters["vca.engine.rerun_frames"] = 0
+    assert read({}) == 0.0
+    tracer.counters["vca.engine.rerun_frames"] = 16
+    assert read({}) == 25.0
