@@ -14,7 +14,7 @@ script ``bench_torch.py``.
 Phases, each printing its findings, any failure ending the run non-zero:
 
 1. device check: CUDA present; card name and power limit; torch/CUDA;
-2. build: compile the four CUDA sources with nvcc, one process each, and
+2. build: compile the five CUDA sources with nvcc, one process each, and
    the native ingest with g++, all started together (ptxas registers,
    spills and shared memory per kernel);
 3. kernels vs plain versions, exactly, on the same CUDA tensors:
@@ -28,7 +28,10 @@ Phases, each printing its findings, any failure ending the run non-zero:
    mouth and both eyes, 320x180 included (ii, iit, vnf, alive), the
    tilted-table kernel alone against the image's plain tilted table and
    the integral kernel alone on the same levels and at band-edge heights
-   and 1x1; the int8 quantizer on the seven layer inputs of a B=64 720p
+   and 1x1; the survivor kernel on every level and both blocks of the
+   mouth and both eyes, B=64 faces and noise at 320x180, on the slots
+   that ``_level_post`` compacts (passed flags); the int8 quantizer on
+   the seven layer inputs of a B=64 720p
    int8 forward and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all
    zeros), the stochastic quantizer on the conv1 input for two seeds
    (values, scale, and its mean rounding error within 5 sigma of 0); the
@@ -44,6 +47,7 @@ Phases, each printing its findings, any failure ending the run non-zero:
    1280x720 on the card over two batches of one stream: every kernel
    launches as often as the engines' level routes predict (the pyramid
    kernel twice per nose batch, once of them with the wide levels); per-frame
+   (the survivor kernel once a level and block of each tilted engine);
    outputs, grouped faces and compacted raw part candidates (with their
    overflow flags) equal the port's CPU run; nose boxes, mouth candidates
    and alive windows after the dense phase of every tilted engine are
@@ -172,7 +176,10 @@ Phases, each printing its findings, any failure ending the run non-zero:
    the single-block kernel of earlier versions took, over all 24, and over
    the six largest against the plain tilted table and dense phase that
    took them before, each with the table pass's and the evaluation's
-   share; the pyramid kernel on the ear's plans (128 work images); the
+   share; the survivor kernel over both eye engines' 24 levels and 2
+   blocks (96 launches) on the slots of phase 3, with its kernels alone
+   under ``torch.profiler``; the pyramid kernel on the ear's plans (128
+   work images); the
    face path's, the part detectors', the ear's and the learned detectors'
    device ms per batch; each detector's ``process()`` frames/s at B=64
    720p.
@@ -226,7 +233,8 @@ from nubomedia_vca_tpu_torch.models.face import (  # noqa: E402
 from nubomedia_vca_tpu_torch.ops import quant  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.color import bgr_to_gray  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.cuda import (  # noqa: E402
-    _build, dense_cuda, dense_level_cuda, integral_cuda, quant_cuda)
+    _build, dense_cuda, dense_level_cuda, integral_cuda, quant_cuda,
+    survivor_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.integral import (  # noqa: E402
     tilted_from_integral, tilted_integral_image)
@@ -356,6 +364,9 @@ KERNELS = {
     "quantize_int8_stochastic": (quant_cuda.quantize_int8_stochastic,
                                  "launches", f"{CSRC}/quant_int8.cu",
                                  f"{PALLAS}/quant_pallas.py:100"),
+    # the JAX engine's survivor stages are XLA gathers and dots
+    "survivor_eval": (survivor_cuda.survivor_eval, "launches",
+                      f"{CSRC}/survivor_eval.cu", "none"),
 }
 # No path runs it: the JAX package calls quantize_int8_stochastic_pallas
 # from nowhere (it exists for quantization-aware fine-tuning), so its
@@ -465,7 +476,8 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 # ------------------------------------------------------------------ phases
 def build_all() -> None:
-    names = ("pyramid_dense", "dense_level", "integral_tables", "quant_int8")
+    names = ("pyramid_dense", "dense_level", "integral_tables", "quant_int8",
+             "survivor_eval")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         ingest = ex.submit(ingest_binding.build_library)
         t0 = time.perf_counter()
@@ -640,6 +652,71 @@ def wide_plans(nose) -> dict:
                 (320, 180), wide[:1], nose._tables, band_target=0)}
 
 
+def survivor_slots(eng, work) -> list:
+    """Per level of a tilted engine on the work images: its tables, vnf
+    and, for each block, (plan, window ids, alive) as ``_level_post``
+    compacts them, the kernel's flags carried from block to block."""
+    out = []
+    B = work.shape[0]
+    for li in range(len(eng.levels)):
+        _, ii, iit, vnf, alive = eng._dense_level(work, li)
+        caps = eng._level_caps[li]
+        sel, sel_alive, _ = eng._compact(alive.bool().reshape(B, -1),
+                                         caps[0])
+        win_ids, blocks = sel, []
+        for bi, plan in enumerate(eng._survivor_plans[li]):
+            if bi > 0 and caps[bi] < sel_alive.shape[1]:
+                sel2, sel_alive, _ = eng._compact(sel_alive, caps[bi])
+                win_ids = win_ids.gather(1, sel2)
+            blocks.append((plan, win_ids, sel_alive))
+            sel_alive = survivor_cuda.survivor_eval(ii, iit, vnf, win_ids,
+                                                    sel_alive, plan)
+        out.append((ii, iit, vnf, blocks))
+    return out
+
+
+def check_survivor(dev, dets, part_frames) -> float:
+    """The survivor kernel vs its plain version, bit for bit, on every
+    level and block of the mouth and both eyes at 320x180, B=64 faces and
+    noise; → max |err|."""
+    work = work_images(part_frames, (320, 180), dev)
+    noise = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, work.shape, np.uint8)).to(dev)
+    err, n_pass = 0.0, 0
+    for d in dets.values():
+        for name, eng in d.part_engines.items():
+            if not eng._uses_tilt:
+                continue
+            n_in, passed, n_slots = [0, 0], [0, 0], [0, 0]
+            for x in (work, noise):
+                for li, (ii, iit, vnf, blocks) in enumerate(
+                        survivor_slots(eng, x)):
+                    for bi, (plan, win_ids, alive) in enumerate(blocks):
+                        got = survivor_cuda.survivor_eval(
+                            ii, iit, vnf, win_ids, alive, plan)
+                        want = survivor_cuda.survivor_eval_reference(
+                            ii, iit, vnf, win_ids, alive, plan)
+                        err = max(err, assert_equal(
+                            got, want, f"survivor {name} level {li} block "
+                            f"{bi}"))
+                        n_in[bi] += int(alive.sum())
+                        passed[bi] += int(got.sum())
+                        n_slots[bi] += win_ids.numel()
+            smem = max(p.smem_bytes for ps in eng._survivor_plans.values()
+                       for p in ps)
+            print(f"survivor kernel ({name}, {len(eng.levels)} levels x "
+                  f"{len(eng._blocks)} blocks), B={BATCH} faces + noise: == "
+                  f"plain (passed flags); slots {n_slots}, alive in "
+                  f"{n_in}, passed {passed}; records up to {smem} B")
+            if n_in[0] == 0:
+                raise AssertionError(f"survivor {name}: no slot alive")
+            n_pass += passed[0]
+    if n_pass == 0:
+        raise AssertionError("survivor kernel: no slot passed a block")
+    print(f"survivor kernel: max |err| {err}")
+    return err
+
+
 def layer_inputs(dev, frames_720) -> list[torch.Tensor]:
     """The seven float32 layer inputs of an int8 forward of the B=64 720p
     batch on the card (what the int8 quantizer takes on the main path)."""
@@ -743,6 +820,9 @@ def predicted_launches(det) -> dict[str, int]:
         "integral_tables": sum(e.routes.count("tilted") for e in engines),
         "quantize_int8": 0,
         "quantize_int8_stochastic": 0,
+        # one a level and block of each tilted engine
+        "survivor_eval": sum(len(plans) for e in engines
+                             for plans in e._survivor_plans.values()),
     }
 
 
@@ -1278,6 +1358,58 @@ def time_tilted(gpu, eye, levels) -> dict[str, dict]:
           f"{b_ms:.4f} ms ({b_by}); no PyTorch call builds a tilted table "
           f"[{gpu}]")
     return out
+
+
+def kernels_us(fn) -> tuple[float, str]:
+    """(device µs of all kernels of one call of fn, mean over 3 calls
+    under torch.profiler; the kernel with the most time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((float(getattr(e, "device_time_total", 0.0)) / 3, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    return sum(us for us, _ in rows), rows[0][1][:60] if rows else ""
+
+
+def time_survivor(gpu, dets, part) -> dict:
+    """The survivor kernel over both eye engines' 24 levels and 2 blocks
+    of the B=64 batch at 320x180 (96 launches, a call's worth on the
+    eye path), on the slots ``_level_post`` compacts, with its plain
+    version, its kernels alone and its bound: both tables of every level
+    read once and, per slot, its window id, alive flag and vnf read and
+    its flag written (14 B), against each live slot's every feature and
+    tree (at most: 4 corner adds, a multiply and an add a rect, the
+    conversion and the vnf multiply a feature, a compare and the stage
+    add a tree)."""
+    calls, n_bytes, n_ops = [], 0.0, 0.0
+    for eng in dets["EyeDetector"].part_engines.values():
+        for li, (ii, iit, vnf, blocks) in enumerate(survivor_slots(eng,
+                                                                   part)):
+            n_bytes += 2.0 * ii.numel() * 4
+            for plan, win_ids, alive in blocks:
+                calls.append((ii, iit, vnf, win_ids, alive, plan))
+                b = plan.block
+                n_bytes += 14.0 * win_ids.numel()
+                n_ops += float(alive.sum()) * float(
+                    6 * b.n_rects.sum() + 2 * len(b.n_rects)
+                    + 2 * len(b.feat))
+    kernel = lambda: [survivor_cuda.survivor_eval(*c) for c in calls]
+    plain = lambda: [survivor_cuda.survivor_eval_reference(*c)
+                     for c in calls]
+    k, p, runs = in_turns(kernel, plain, 20, 2)
+    k_us, top = kernels_us(kernel)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    print(f"time: survivor kernel {k:.4f} ms per B={BATCH} batch over both "
+          f"eye engines' {len(calls)} levels x blocks; runs {runs}; kernels "
+          f"alone {k_us:.1f} us ({top}); plain {p:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.2f} MB, "
+          f"{n_ops / 1e9:.3f} G ops) [{gpu}]")
+    return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, kernels_us=k_us)
 
 
 def part_device_pass(det, gray):
@@ -2424,6 +2556,8 @@ def times(dev, gpu, face_eng, dets, frames_720, xs, ears,
         gpu, list(levels.values()),
         "the right eye's 24 tilted levels (its launches on the path)")
 
+    out["survivor_eval"] = time_survivor(gpu, dets, part)
+
     out["pyramid_dense_phase_wide"] = time_pyramid(
         gpu, part, wide_plans(nose)["4 wide levels"],
         "the nose's 4 wide levels alone (320x180 .. 240x135, the row-strip "
@@ -2524,6 +2658,7 @@ def main() -> int:
         face_clip(TRAIN_BATCH, distill.W, distill.H, seed=5))
     err = {"pyramid_dense_phase": pyr_err}
     err.update(check_level_kernels(dev, dets, frames[FRAME]))
+    err["survivor_eval"] = check_survivor(dev, dets, frames[FRAME])
     ear_err, ear_wide_err = check_ear_pyramid(dev, ears, ear_frames[:BATCH])
     err["pyramid_dense_phase"] = max(err["pyramid_dense_phase"], ear_err)
     err["pyramid_dense_phase_wide"] = max(err["pyramid_dense_phase_wide"],

@@ -23,13 +23,16 @@ Per batch of work images:
   capacity with ``torch.topk`` (earliest index first); a per-frame overflow
   flag reports survivors beyond capacity, and ``widened()`` gives the
   engine at twice its capacities for running such frames again.
-* **Matmul blocks**: for survivors the window's patch of the sum table (and
-  of the tilted table) is gathered — from the level image, rebuilt as the
-  patch-local integral, where no table left the dense phase — and each
-  block's feature values are one patch x feature-matrix matmul, weak trees
-  are selects and stage sums a second small matmul. Between blocks the
-  survivor set is re-compacted. A cascade with no stage past the dense
-  block emits the dense survivors directly.
+* **Matmul blocks**, the stages after the dense block, in blocks; between
+  blocks the survivor set is re-compacted. Where the dense phase emitted
+  the sum and tilted tables (the ``tilted`` route), each block is one
+  launch of ``ops/cuda/survivor_cuda.survivor_eval``, which reads each
+  survivor's feature corners from the tables in place. Elsewhere each
+  survivor's patch of the sum table is rebuilt from the level image as the
+  patch-local integral, each block's feature values are one patch x
+  feature-matrix matmul, weak trees are selects and stage sums a second
+  small matmul. A cascade with no stage past the dense block emits the
+  dense survivors directly.
 * **Grouping** (``group_device``): exact minNeighbors grouping on the
   device, only [B, 64] grouped boxes leave it.
 
@@ -39,10 +42,11 @@ matmuls must not round through TF32, so the engine refuses to run when
 ``torch.backends.cuda.matmul.allow_tf32`` is set or the float32 matmul
 precision is not "highest" (both are PyTorch's defaults); it changes no
 global setting itself. A feature matmul whose partial sums can reach 2^24
-(tilted patches, which hold absolute table differences, and windows as
-large as the smile's 36x18) runs in float64, where every partial sum is an
-exact integer, and is rounded once to float32, so its result does not
-depend on the summation order of the device's BLAS.
+(windows as large as the smile's 36x18) runs in float64, where every
+partial sum is an exact integer, and is rounded once to float32, so its
+result does not depend on the summation order of the device's BLAS. The
+survivor kernel sums each feature exactly in int32 and rounds it once, the
+same value.
 
 The TPU compile machinery of the JAX engine (per-level programs, program
 grouping, warm-up, recovery tiers) has no counterpart: PyTorch runs
@@ -61,11 +65,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda import survivor_cuda
 from ..ops.cuda.dense_cuda import (MAX_SMEM_BYTES, DenseTables,
                                    PyramidDensePlan, pyramid_dense_phase,
                                    pyramid_fits)
 from ..ops.cuda.dense_level_cuda import (DenseLevelPlan, dense_level_tilted,
                                          tilted_fits)
+from ..ops.cuda.survivor_cuda import SurvivorBlock, SurvivorPlan
 from ..ops.grouping import group_rectangles_torch
 from ..ops.resize import resize_linear_exact
 from ..utils.tracing import trace
@@ -102,6 +108,7 @@ class _Block:
     stage_onehot: np.ndarray   # [Wb, Sb] f32
     stage_thr: np.ndarray      # [Sb] f32
     cap_frac: float            # capacity fraction of level windows
+    survivor: SurvivorBlock | None  # the survivor kernel's form (tilted)
 
     def to(self, device: torch.device,
            patch_dtype: torch.dtype) -> dict[str, torch.Tensor | None]:
@@ -210,23 +217,34 @@ class CascadeEngine:
         self._level_plans = {
             li: DenseLevelPlan.make(self.levels[li], self._tables)
             for li, r in enumerate(self.routes) if r == "tilted"}
+        # the tilted route's survivor stages: one plan per level and block
+        self._survivor_plans = {
+            li: [SurvivorPlan.make(self.levels[li], blk.survivor)
+                 for blk in self._blocks]
+            for li in self._level_plans}
 
         dev = self.device
         self._patch_dtype = (torch.float64 if self._needs_f64()
                              else torch.float32)
-        self._blocks_dev = [blk.to(dev, self._patch_dtype)
-                            for blk in self._blocks]
-        self._maps_dev = [(torch.from_numpy(mx).long().to(dev),
-                           torch.from_numpy(my).long().to(dev))
-                          for mx, my in self._maps]
+        self._blocks_dev = ([blk.to(dev, self._patch_dtype)
+                             for blk in self._blocks]
+                            if self._pyramid_lis else [])
+        # each level's raw box by window id: (x, y) in original pixels,
+        # the level's window size
+        self._boxes_dev = [
+            torch.from_numpy(np.stack(np.broadcast_arrays(
+                mx[None, :], my[:, None], l.out_w, l.out_h),
+                -1).reshape(-1, 4).astype(np.int32)).to(dev)
+            for l, (mx, my) in zip(self.levels, self._maps)]
         self._img_poff_dev = [
             torch.from_numpy(self._img_patch_dy * l.sw
                              + self._img_patch_dx).long().to(dev)
             for l in self.levels]
-        self._tab_poff_dev = [
-            torch.from_numpy(self._patch_dy * (l.sw + 1)
-                             + self._patch_dx).long().to(dev)
-            for l in self.levels]
+        if dev.type == "cuda" and self._blocks and self._survivor_plans:
+            survivor_cuda.load(dev)
+            for plans in self._survivor_plans.values():
+                for plan in plans:
+                    plan.device_records(dev)
 
     # ------------------------------------------------------------------ prep
     def _route(self, l: LevelSpec) -> str:
@@ -249,9 +267,10 @@ class CascadeEngine:
 
     def _needs_f64(self) -> bool:
         """Whether a feature matmul's partial sums can reach 2^24: always
-        with tilted features (their patches hold absolute table
-        differences), else when sum(|weight| * largest patch entry) of a
-        feature does (patch entry (dy, dx) is at most 255*dy*dx)."""
+        with tilted features (a tilted patch would hold absolute table
+        differences; the tilted route builds none, its survivor kernel sums
+        exactly in int32), else when sum(|weight| * largest patch entry) of
+        a feature does (patch entry (dy, dx) is at most 255*dy*dx)."""
         most = (255 * self._patch_dy * self._patch_dx).astype(np.float64)
         return any(
             blk.w_tilt is not None
@@ -316,12 +335,12 @@ class CascadeEngine:
                 np.rint(ys * l.factor).astype(np.int32),
             ))
 
-        # survivor patches of the (h0+1)x(w0+1) table entries of a window
+        # the (h0+1)x(w0+1) entries of a window's sum-table patch
         dy, dx = np.meshgrid(np.arange(self._ph), np.arange(self._pw),
                              indexing="ij")
         self._patch_dy = dy.reshape(-1)
         self._patch_dx = dx.reshape(-1)
-        # where no table left the dense phase, survivor patches are gathered
+        # where no table left the dense phase, survivor patches are built
         # from the LEVEL IMAGE (uint8, w0×h0): the patch-local integral of
         # the window's pixels equals the doubly-relative sum-table patch
         # entry for entry
@@ -384,17 +403,19 @@ class CascadeEngine:
         for i, s in enumerate(c.weak_stage[w_lo:w_hi]):
             onehot[i, int(s) - s_lo] = 1.0
         rm = np.vectorize(lambda f: remap[int(f)], otypes=[np.int32])
-        return _Block(
-            w_sum=w_sum, w_tilt=w_tilt,
+        trees = dict(
             feat0=rm(c.feat0[w_lo:w_hi]), thr0=c.thr0[w_lo:w_hi],
             featL=rm(c.featL[w_lo:w_hi]), thrL=c.thrL[w_lo:w_hi],
             leavesL=c.leavesL[w_lo:w_hi],
             featR=rm(c.featR[w_lo:w_hi]), thrR=c.thrR[w_lo:w_hi],
             leavesR=c.leavesR[w_lo:w_hi],
-            stage_onehot=onehot,
-            stage_thr=c.stage_thresholds[s_lo:s_hi],
-            cap_frac=frac,
-        )
+            stage_thr=c.stage_thresholds[s_lo:s_hi])
+        survivor = (SurvivorBlock.make(
+            self._feat_rects, used, tree_stage=c.weak_stage[w_lo:w_hi],
+            window=(c.window_w, c.window_h), **trees)
+            if self._uses_tilt else None)
+        return _Block(w_sum=w_sum, w_tilt=w_tilt, stage_onehot=onehot,
+                      cap_frac=frac, survivor=survivor, **trees)
 
     # ------------------------------------------------------------- stages
     @staticmethod
@@ -416,16 +437,13 @@ class CascadeEngine:
         return sel, sel_alive, count
 
     @staticmethod
-    def _block_eval(blk: dict, patch, patch_t, vnf_sel):
-        """patch, patch_t [B,C,PP] (sum-table and tilted-table patches, in
-        the engine's patch dtype), vnf_sel [B,C] → pass [B,C]. The feature
-        matmuls are exact integer arithmetic (float32 where every partial
-        sum stays below 2^24, else float64), so their summation order does
-        not matter; the features are rounded once to float32. TF32 would
-        round the patch values."""
+    def _block_eval(blk: dict, patch, vnf_sel):
+        """patch [B,C,PP] (sum-table patches, in the engine's patch dtype),
+        vnf_sel [B,C] → pass [B,C]. The feature matmul is exact integer
+        arithmetic (float32 where every partial sum stays below 2^24, else
+        float64), so its summation order does not matter; the features are
+        rounded once to float32. TF32 would round the patch values."""
         feats = torch.matmul(patch, blk["w_sum"])
-        if blk["w_tilt"] is not None:
-            feats = feats + torch.matmul(patch_t, blk["w_tilt"])
         vals = feats.to(torch.float32) * vnf_sel[:, :, None]
         v0 = vals[..., blk["feat0"]]
         vL = vals[..., blk["featL"]]
@@ -440,17 +458,16 @@ class CascadeEngine:
 
     def _level_post(self, li, img, ii, iit, vnf, alive):
         """Strided dense-grid maps of level `li` → (boxes [B,cap,4] i32,
-        valid [B,cap], overflow [B]): compaction, survivor patch gather,
-        matmul blocks. Patches come from the sum and tilted tables `ii`,
-        `iit` [B,sh+1,sw+1] when the dense phase emitted them, else from
-        the level image `img` [B,sh,sw] u8."""
+        valid [B,cap], overflow [B]): compaction, then the matmul blocks.
+        Where the dense phase emitted the sum and tilted tables `ii`, `iit`
+        [B,sh+1,sw+1], each block is one ``survivor_eval`` on them; else
+        each block is a matmul on survivor patches rebuilt from the level
+        image `img` [B,sh,sw] u8."""
         with trace("vca.engine.survivor"):
             l, caps = self.levels[li], self._level_caps[li]
-            map_x, map_y = self._maps_dev[li]
             B = alive.shape[0]
             ny, nx, step = l.ny, l.nx, l.ystep
             nwin = ny * nx
-            overflow = torch.zeros((B,), dtype=torch.bool, device=alive.device)
             alive_flat = alive.reshape(B, nwin)
             vnf_flat = vnf.reshape(B, nwin)
 
@@ -458,17 +475,18 @@ class CascadeEngine:
                 # no stage past the dense block: emit the dense survivors
                 cap = min(nwin, self.MAX_CAPACITY * self.capacity_scale)
                 sel, sel_alive, count = self._compact(alive_flat, cap)
-                overflow |= count > cap
+                overflow = count > cap
                 win_ids = sel
             else:
-                # first compaction + one-time patch gather
                 cap0 = caps[0]
                 sel, sel_alive, count = self._compact(alive_flat, cap0)
-                overflow |= count > cap0
+                overflow = count > cap0
                 win_ids = sel
-                y, x = (sel // nx) * step, (sel % nx) * step
-                k0 = sel.shape[1]
+                patch = None
                 if ii is None:
+                    # one-time patch gather: the patch-local integral
+                    y, x = (sel // nx) * step, (sel % nx) * step
+                    k0 = sel.shape[1]
                     idx = (y * l.sw + x)[:, :, None] + self._img_poff_dev[li]
                     pimg = img.reshape(B, -1).gather(
                         1, idx.reshape(B, -1)).reshape(
@@ -477,45 +495,30 @@ class CascadeEngine:
                         torch.cumsum(pimg.to(torch.int32), dim=-1,
                                      dtype=torch.int32),
                         dim=-2, dtype=torch.int32)
-                    patch = F.pad(local, (1, 0, 1, 0))
-                else:
-                    idx = ((y * (l.sw + 1) + x)[:, :, None]
-                           + self._tab_poff_dev[li]).reshape(B, -1)
-                    patch = ii.reshape(B, -1).gather(1, idx).reshape(
-                        B, k0, self._ph, self._pw)
-                    patch = (patch - patch[:, :, :1, :] - patch[:, :, :, :1]
-                             + patch[:, :, :1, :1])
-                patch = patch.reshape(B, k0, -1).to(self._patch_dtype)
-                patch_t = None
-                if self._uses_tilt:
-                    patch_t = iit.reshape(B, -1).gather(1, idx).reshape(
-                        B, k0, -1)
-                    patch_t = (patch_t - patch_t[:, :, :1]).to(
+                    patch = F.pad(local, (1, 0, 1, 0)).reshape(B, k0, -1).to(
                         self._patch_dtype)
-                vnf_sel = vnf_flat.gather(1, sel)
+                    vnf_sel = vnf_flat.gather(1, sel)
 
-                for bi, blk in enumerate(self._blocks_dev):
+                for bi in range(len(self._blocks)):
                     if bi > 0 and caps[bi] < sel_alive.shape[1]:
                         # re-compact among current survivors
                         sel2, sel_alive, count = self._compact(sel_alive,
                                                                caps[bi])
                         overflow |= count > caps[bi]
                         win_ids = win_ids.gather(1, sel2)
-                        rows = sel2[:, :, None].expand(-1, -1, patch.shape[2])
-                        patch = patch.gather(1, rows)
-                        if patch_t is not None:
-                            patch_t = patch_t.gather(1, rows)
-                        vnf_sel = vnf_sel.gather(1, sel2)
-                    passed = self._block_eval(blk, patch, patch_t, vnf_sel)
-                    sel_alive = sel_alive & passed
+                        if patch is not None:
+                            patch = patch.gather(1, sel2[:, :, None].expand(
+                                -1, -1, patch.shape[2]))
+                            vnf_sel = vnf_sel.gather(1, sel2)
+                    if patch is None:
+                        sel_alive = survivor_cuda.survivor_eval(
+                            ii, iit, vnf, win_ids, sel_alive,
+                            self._survivor_plans[li][bi])
+                    else:
+                        sel_alive = sel_alive & self._block_eval(
+                            self._blocks_dev[bi], patch, vnf_sel)
 
-            bx = map_x[win_ids % nx]
-            by = map_y[win_ids // nx]
-            boxes = torch.stack(
-                [bx, by, torch.full_like(bx, l.out_w),
-                 torch.full_like(bx, l.out_h)],
-                dim=-1).to(torch.int32)
-            return boxes, sel_alive, overflow
+            return self._boxes_dev[li][win_ids], sel_alive, overflow
 
     def _dense_level(self, gray: torch.Tensor, li: int):
         """Tilted level `li` → (img, ii, iit, vnf, alive)."""

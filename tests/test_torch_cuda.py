@@ -1,9 +1,9 @@
 """CUDA tests of the PyTorch port: each hand-written kernel (the pyramid
 dense kernel, its bands on the levels the row-strip kernel took before
 included, the tilted kernels of the level dense phase, the tilted-table
-kernel, the integral-tables kernel, the int8 quantizers) against its plain
-PyTorch
-version on the card, and the face, part, ear and learned detectors, the
+kernel, the integral-tables kernel, the survivor kernel of tilted
+cascades, the int8 quantizers) against its plain PyTorch version on the
+card, and the face, part, ear and learned detectors, the
 motion tracker, the drawing ops and the learned detectors' training path
 (the distillation teacher, train steps, the train-state round trip), the
 multi-device dry run at world size 1, the cascade trainer's GEMM, the
@@ -41,11 +41,12 @@ from nubomedia_vca_tpu_torch.models.face import (DEFAULT_FACE_CASCADE,
                                                  FaceDetector)
 from nubomedia_vca_tpu_torch.ops import quant
 from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
-                                              integral_cuda, quant_cuda)
+                                              integral_cuda, quant_cuda,
+                                              survivor_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
 from nubomedia_vca_tpu_torch.ops.integral import tilted_integral_image
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
-from nubomedia_vca_tpu_torch.utils import checkpoint
+from nubomedia_vca_tpu_torch.utils import checkpoint, tracing
 from nubomedia_vca_tpu_torch.utils.synth import (blob_clip, face_clip,
                                                  face_scene, profile_scene)
 
@@ -195,6 +196,83 @@ def test_tilted_kernel_equals_plain_version(cuda_device, name, min_size):
             assert torch.equal(g, w), f"level {li} {what}"
         n_alive += int(got[3].sum())
     assert n_alive > 0
+
+
+EYES = ("haarcascade_righteye_2splits.xml", "haarcascade_lefteye_2splits.xml")
+
+
+@pytest.mark.parametrize("name", EYES)
+def test_survivor_kernel_equals_plain_version(cuda_device, name):
+    """The survivor kernel against its plain version on the card, at the
+    eye cell's shapes: B = 64 part images at 320x180, all 24 levels, both
+    blocks, on the slots that ``_level_post`` compacts; passed flags bit
+    for bit, one launch a level and block."""
+    eng = CascadeEngine(load_cascade(os.path.join(PKG_ASSETS_DIR, name)),
+                        (320, 180), 1.1, min_size=(20, 20),
+                        device=cuda_device)
+    assert len(eng.levels) == 24 and len(eng._blocks) == 2
+    work = _part_work((320, 180), n=64).to(cuda_device)
+    n_in, n_pass = [0, 0], [0, 0]
+    for li in range(len(eng.levels)):
+        _, ii, iit, vnf, alive = eng._dense_level(work, li)
+        caps = eng._level_caps[li]
+        sel, sel_alive, _ = eng._compact(alive.bool().reshape(64, -1),
+                                         caps[0])
+        win_ids = sel
+        for bi, plan in enumerate(eng._survivor_plans[li]):
+            if bi > 0 and caps[bi] < sel_alive.shape[1]:
+                sel2, sel_alive, _ = eng._compact(sel_alive, caps[bi])
+                win_ids = win_ids.gather(1, sel2)
+            before = survivor_cuda.survivor_eval.launches
+            got = survivor_cuda.survivor_eval(ii, iit, vnf, win_ids,
+                                              sel_alive, plan)
+            assert survivor_cuda.survivor_eval.launches == before + 1
+            want = survivor_cuda.survivor_eval_reference(
+                ii, iit, vnf, win_ids, sel_alive, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (li, bi)
+            n_in[bi] += int(sel_alive.sum())
+            n_pass[bi] += int(got.sum())
+            sel_alive = got
+    assert n_in[0] > n_pass[0] > 0 and n_in[1] > 0
+
+
+def test_survivor_kernel_engines_cuda_equal_cpu(cuda_device):
+    """The eye engines' raw output (boxes, valid, overflow) on the card
+    equals the CPU's for the same part images; the survivor kernel's
+    launches (``survivor_eval.launches`` and, while tracing,
+    ``vca.engine.survivor_kernel_launches``) rise by one a level and block
+    for an eye engine and stay where they were for the face engine."""
+    work = _part_work((320, 180), n=8)
+    t = tracing.TRACER
+    t.enabled = True
+    try:
+        face = CascadeEngine(load_cascade(DEFAULT_FACE_CASCADE), (160, 90),
+                             1.25, device=cuda_device)
+        before = (survivor_cuda.survivor_eval.launches,
+                  t.counters["vca.engine.survivor_kernel_launches"])
+        face.detect_raw(resize_linear_exact(work, (160, 90)).to(cuda_device))
+        assert (survivor_cuda.survivor_eval.launches,
+                t.counters["vca.engine.survivor_kernel_launches"]) == before
+        for name in EYES:
+            engs = [CascadeEngine(
+                load_cascade(os.path.join(PKG_ASSETS_DIR, name)), (320, 180),
+                1.1, min_size=(20, 20), device=dev)
+                for dev in (cuda_device, "cpu")]
+            before = (survivor_cuda.survivor_eval.launches,
+                      t.counters["vca.engine.survivor_kernel_launches"])
+            got = engs[0].detect_raw(work.to(cuda_device))
+            n = len(engs[0].levels) * len(engs[0]._blocks)
+            assert (survivor_cuda.survivor_eval.launches,
+                    t.counters["vca.engine.survivor_kernel_launches"]) == (
+                        before[0] + n, before[1] + n)
+            want = engs[1].detect_raw(work)
+            for g, w, what in zip(got, want, ("boxes", "valid", "overflow")):
+                assert torch.equal(g.cpu(), w), (name, what)
+    finally:
+        t.enabled = False
+        t.sections.clear()
+        t.counters.clear()
 
 
 @pytest.mark.parametrize("hw", [(180, 320), (37, 53), (1, 1)])
