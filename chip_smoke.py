@@ -70,9 +70,9 @@ Phases, each printing its findings, any failure ending the run non-zero:
    order);
 8. tracker and drawing: ``Tracker((1280, 720), device="cuda")`` on a
    moving-blob clip, blobs per frame and the final MHI equal to the CPU
-   run over 8 frames (one more step's rects, valid and mask too, its
-   orientation within 1e-3 degrees), then 64 frames timed, with the
-   label-propagation iterations per frame; ``render_detections`` rect,
+   run over 8 frames, then ``Tracker.process`` over 64 frames in one call
+   timed, with the label-propagation iterations per frame (the changed
+   flag read every 4, 1 and 16 iterations); ``render_detections`` rect,
    circle and costume blend on a B=64 720p BGR batch on the card against
    the numpy twins (``host=True``): rect and circle exactly, the blend
    within 1 (the twin divides by 255 and fuses no multiply-add) and
@@ -95,8 +95,8 @@ Phases, each printing its findings, any failure ending the run non-zero:
     loop's batches. It prints frames/s per pipeline over TCP, ms per loop
     step, each pipeline's ``stats()`` and the host ms of each element
     call; then each pipeline serves its first 48 frames alone, timed the
-    same way, and A's tracker scans the served frames alone (device ms and
-    label-propagation iterations per frame);
+    same way, and A's tracker runs the served frames alone
+    (``Tracker.process`` ms and label-propagation iterations per frame);
 11. training (run after 10, before the times): at the shipped width,
     B=32, 320x240 on the card. The distillation teacher
     (``distill.make_teacher``: frontalface_alt, 12 levels, 3 wide) labels
@@ -241,7 +241,7 @@ from nubomedia_vca_tpu_torch.ops.integral import (  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
     resize_linear_exact)
 from nubomedia_vca_tpu_torch.parallel import dryrun  # noqa: E402
-from nubomedia_vca_tpu_torch.utils import checkpoint  # noqa: E402
+from nubomedia_vca_tpu_torch.utils import checkpoint, tracing  # noqa: E402
 from nubomedia_vca_tpu_torch.utils.synth import (  # noqa: E402
     blob_clip, draw_face, face_clip, face_scene, profile_scene)
 
@@ -261,7 +261,6 @@ BF16_ATOL = 0.0625     # bf16 forward, card vs CPU (tests/test_torch_cnn.py)
 EAR_BATCHES = 2        # consecutive B=64 batches of one stream, ear path
 TRACKER_FRAMES = 64    # frames of the tracker's timed run
 TRACKER_CPU_FRAMES = 8  # consecutive frames held against the CPU run
-ORIENT_ATOL = 1e-3     # motion orientation, degrees (tests/test_torch_tracker)
 REAL_PROFILE = "haarcascade_profileface.xml"
 SERVE_FRAMES = 96      # paced 720p frames per pipeline over TCP, phase 10
 SERVE_WINDOW = 32      # frames in flight at most: the ingest holds 64
@@ -659,7 +658,7 @@ def survivor_slots(eng, work) -> list:
     out = []
     B = work.shape[0]
     for li in range(len(eng.levels)):
-        _, ii, iit, vnf, alive = eng._dense_level(work, li)
+        (ii, iit), vnf, alive = eng._dense_level(work, li)
         caps = eng._level_caps[li]
         sel, sel_alive, _ = eng._compact(alive.bool().reshape(B, -1),
                                          caps[0])
@@ -878,7 +877,7 @@ def part_path(dets, dev) -> dict[str, int]:
             if not eng._uses_tilt:
                 continue
             work = work_images(batches[0], (320, 180), dev)
-            alive = sum(int(eng._dense_level(work, li)[4].sum())
+            alive = sum(int(eng._dense_level(work, li)[2].sum())
                         for li in range(len(eng.levels)))
             print(f"{name} {part}: {alive} windows alive after the dense "
                   "phase")
@@ -1047,6 +1046,30 @@ def ear_device_pass(det, gray):
     return run
 
 
+def time_tracker(dev, frames) -> tuple[float, float, int]:
+    """``Tracker.process`` over `frames` [N,H,W] (host) in one call of
+    stream 0, on a tracker whose first call (stream 1) captured its CUDA
+    graph → (ms per frame, label-propagation iterations per frame from
+    the ``vca.tracker.seg_iterations`` counter, blobs)."""
+    tr = Tracker(FRAME, device=dev)
+    tr.process(frames[:4], stream=1)
+    t = tracing.TRACER
+    t.enabled = True
+    try:
+        t.counters.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tr.process(frames)
+        secs = time.perf_counter() - t0
+        iters = t.counters["vca.tracker.seg_iterations"]
+    finally:
+        t.enabled = False
+        t.sections.clear()
+        t.counters.clear()
+    n = len(frames)
+    return secs * 1000.0 / n, iters / n, sum(len(b) for b in out)
+
+
 def tracker_path(dev, gpu) -> None:
     """``Tracker.process`` at 1280x720 on the moving-blob clip: blobs per
     frame and the final MHI equal the CPU run over the first frames; then
@@ -1062,57 +1085,23 @@ def tracker_path(dev, gpu) -> None:
     assert_equal(got.state.mhi.cpu(), want.state.mhi, "tracker MHI")
     if sum(blobs) == 0:
         raise AssertionError("tracker: no blob on the moving-blob clip")
-    # one more step from both states: its mask and orientation too
-    kw = dataclasses.asdict(got.config)
-    kw = {k: kw[k] for k in ("threshold", "mhi_duration", "seg_thresh",
-                             "max_blobs")}
-    rg = tracker.tracker_step(got.state, clip[n], n / got.fps, **kw)
-    rc = tracker.tracker_step(want.state, clip[n], n / want.fps, **kw)
-    for g, c, what in zip(rg[1:4], rc[1:4], ("rects", "valid", "mask")):
-        assert_equal(g.cpu(), c, f"tracker step {what}")
-    mask = rc[3]
-    orient_err = float((rg[4].cpu() - rc[4]).abs()[mask].max()) \
-        if mask.any() else 0.0
     print(f"tracker: {n} frames 1280x720, blobs per frame {blobs}: CUDA == "
-          f"CPU (blob lists, final MHI; one step's rects, valid, mask); "
-          f"orientation max |err| on the mask {orient_err:.3g} degrees "
-          f"(tolerance {ORIENT_ATOL})")
-    if orient_err > ORIENT_ATOL:
-        raise AssertionError("tracker: orientation differs from the CPU")
-    tr = Tracker(FRAME, device=dev)
-    tr.process(clip[:4])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = tr.process(clip)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    frames = torch.from_numpy(clip).to(dev)
-    ts = np.arange(TRACKER_FRAMES) / 30.0
-    iters: list[int] = []
-
-    def scan():
-        iters.clear()
-        tracker.tracker_scan(tracker.init_state(*FRAME[::-1], device=dev),
-                             frames, ts, iterations=iters, **kw)
-
-    step_ms = cuda_ms(scan, 2) / TRACKER_FRAMES
-    print(f"time: Tracker.process {secs * 1000.0 / TRACKER_FRAMES:.4f} ms per "
-          f"1280x720 frame over {TRACKER_FRAMES} frames in one call "
-          f"({sum(len(b) for b in out)} blobs); device step (tracker_scan on "
-          f"device-resident frames, CUDA events) {step_ms:.4f} ms per frame; "
-          f"label-propagation iterations per frame mean "
-          f"{np.mean(iters):.2f} max {max(iters)} (the changed flag read "
-          f"every {tracker.SEG_CHECK_EVERY}) [{gpu}]")
-    # what the host's read of the flag costs: the same scan reading it
+          f"CPU (blob lists, final MHI)")
+    ms, iters, n_blobs = time_tracker(dev, clip)
+    print(f"time: Tracker.process {ms:.4f} ms per 1280x720 frame over "
+          f"{TRACKER_FRAMES} frames in one call ({n_blobs} blobs); "
+          f"label-propagation iterations per frame {iters:.2f} (the changed "
+          f"flag read every {tracker.SEG_CHECK_EVERY}) [{gpu}]")
+    # what the host's read of the flag costs: the same call reading it
     # after every iteration and after every 16 (exact either way)
     every = tracker.SEG_CHECK_EVERY
     try:
         for k in (1, 16):
             tracker.SEG_CHECK_EVERY = k
-            ms = cuda_ms(scan, 2) / TRACKER_FRAMES
-            print(f"time: tracker device step with the flag read every {k} "
-                  f"iterations {ms:.4f} ms per frame (iterations mean "
-                  f"{np.mean(iters):.2f}) [{gpu}]")
+            ms, iters, _ = time_tracker(dev, clip)
+            print(f"time: Tracker.process with the flag read every {k} "
+                  f"iterations {ms:.4f} ms per frame (iterations per frame "
+                  f"{iters:.2f}) [{gpu}]")
     finally:
         tracker.SEG_CHECK_EVERY = every
 
@@ -1752,23 +1741,11 @@ def serving_path(dev, gpu) -> dict[str, int]:
           f"batches ({drawn} pixels drawn); native ingest on both "
           f"pipelines, no element exception")
     # A's tracker alone on the served frames (phase 8 times it on the blob
-    # clip): its device step and label-propagation iterations per frame
-    kw = dataclasses.asdict(tracker.TrackerConfig())
-    kw = {k: kw[k] for k in ("threshold", "mhi_duration", "seg_thresh",
-                             "max_blobs")}
-    gray_dev = torch.from_numpy(gray).to(dev)
-    iters: list[int] = []
-
-    def scan():
-        iters.clear()
-        tracker.tracker_scan(tracker.init_state(*FRAME[::-1], device=dev),
-                             gray_dev, np.arange(SERVE_FRAMES) / 30.0,
-                             iterations=iters, **kw)
-
-    ms = cuda_ms(scan, 1) / SERVE_FRAMES
+    # clip): Tracker.process and its label-propagation iterations per frame
+    ms, iters, _ = time_tracker(dev, gray)
     print(f"serving: A's tracker alone on the {SERVE_FRAMES} served frames, "
-          f"device step {ms:.4f} ms per frame, label-propagation iterations "
-          f"per frame mean {np.mean(iters):.2f} max {max(iters)} [{gpu}]")
+          f"Tracker.process {ms:.4f} ms per frame, label-propagation "
+          f"iterations per frame {iters:.2f} [{gpu}]")
     return counts
 
 

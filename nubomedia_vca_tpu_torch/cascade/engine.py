@@ -23,16 +23,16 @@ Per batch of work images:
   capacity with ``torch.topk`` (earliest index first); a per-frame overflow
   flag reports survivors beyond capacity, and ``widened()`` gives the
   engine at twice its capacities for running such frames again.
-* **Matmul blocks**, the stages after the dense block, in blocks; between
-  blocks the survivor set is re-compacted. Where the dense phase emitted
-  the sum and tilted tables (the ``tilted`` route), each block is one
+* **Survivor stages**, the stages after the dense block, in the blocks of
+  ``BLOCK_PLAN``, re-compacted before each; each route builds and runs its
+  own form of the blocks. ``tilted`` (``_table_stages``): a block is one
   launch of ``ops/cuda/survivor_cuda.survivor_eval``, which reads each
-  survivor's feature corners from the tables in place. Elsewhere each
-  survivor's patch of the sum table is rebuilt from the level image as the
-  patch-local integral, each block's feature values are one patch x
-  feature-matrix matmul, weak trees are selects and stage sums a second
-  small matmul. A cascade with no stage past the dense block emits the
-  dense survivors directly.
+  survivor's feature corners from the dense phase's tables in place.
+  ``pyramid`` (``_matmul_stages``): each survivor's sum-table patch is
+  rebuilt once from the level image as the patch-local integral; a block's
+  feature values are one patch x feature-matrix matmul, weak trees are
+  selects and stage sums a second small matmul. A cascade with no stage
+  past the dense block emits the dense survivors directly.
 * **Grouping** (``group_device``): exact minNeighbors grouping on the
   device, only [B, 64] grouped boxes leave it.
 
@@ -41,12 +41,13 @@ sums, resize), and the same float32 operations elsewhere. The float32
 matmuls must not round through TF32, so the engine refuses to run when
 ``torch.backends.cuda.matmul.allow_tf32`` is set or the float32 matmul
 precision is not "highest" (both are PyTorch's defaults); it changes no
-global setting itself. A feature matmul whose partial sums can reach 2^24
-(windows as large as the smile's 36x18) runs in float64, where every
-partial sum is an exact integer, and is rounded once to float32, so its
-result does not depend on the summation order of the device's BLAS. The
-survivor kernel sums each feature exactly in int32 and rounds it once, the
-same value.
+global setting itself. A feature matmul of the ``pyramid`` route whose
+partial sums can reach 2^24 (a cascade with windows as large as the
+smile's 36x18, were it not tilted) runs in float64, where every partial
+sum is an exact integer, and is rounded once to float32, so its result
+does not depend on the summation order of the device's BLAS. The survivor
+kernel of the ``tilted`` route sums each feature exactly in int32 and
+rounds it once, the same value.
 
 The TPU compile machinery of the JAX engine (per-level programs, program
 grouping, warm-up, recovery tiers) has no counterpart: PyTorch runs
@@ -93,10 +94,10 @@ def _tilt_corner_offsets(x, y, w, h):
 
 @dataclasses.dataclass
 class _Block:
-    """Host-precomputed tables for one matmul block of stages."""
+    """One block of stages after the dense block, as both routes plan it:
+    its features (cascade ids), trees, stages and capacity."""
 
-    w_sum: np.ndarray          # [PP, Fb] f32
-    w_tilt: np.ndarray | None  # [PP, Fb] f32
+    feats: list[int]
     feat0: np.ndarray          # [Wb] i32 (block-local feature ids)
     thr0: np.ndarray
     featL: np.ndarray
@@ -105,27 +106,35 @@ class _Block:
     featR: np.ndarray
     thrR: np.ndarray
     leavesR: np.ndarray
-    stage_onehot: np.ndarray   # [Wb, Sb] f32
+    tree_stage: np.ndarray     # [Wb] stage of each tree, from 0
     stage_thr: np.ndarray      # [Sb] f32
     cap_frac: float            # capacity fraction of level windows
-    survivor: SurvivorBlock | None  # the survivor kernel's form (tilted)
+
+    def trees(self) -> dict[str, np.ndarray]:
+        """The trees and stage thresholds by field name."""
+        return {f: getattr(self, f) for f in (
+            "feat0", "thr0", "featL", "thrL", "leavesL", "featR", "thrR",
+            "leavesR", "stage_thr")}
+
+
+@dataclasses.dataclass
+class _MatmulBlock(_Block):
+    """A block in the ``pyramid`` route's form (the JAX engine's block):
+    patches x ``w_sum`` are the features, leaves x ``stage_onehot`` the
+    stage sums."""
+
+    w_sum: np.ndarray          # [PP, Fb] f32
+    stage_onehot: np.ndarray   # [Wb, Sb] f32
 
     def to(self, device: torch.device,
-           patch_dtype: torch.dtype) -> dict[str, torch.Tensor | None]:
-        """The evaluation tables as tensors on `device`, the feature
-        matrices in the engine's patch dtype."""
-        out: dict[str, torch.Tensor | None] = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if isinstance(v, np.ndarray):
-                t = torch.from_numpy(v)
-                if v.dtype.kind == "i":
-                    t = t.long()
-                elif f.name.startswith("w_"):
-                    t = t.to(patch_dtype)
-                out[f.name] = t.to(device)
-            elif f.name == "w_tilt":
-                out[f.name] = None
+           patch_dtype: torch.dtype) -> dict[str, torch.Tensor]:
+        """The tables the matmuls read as tensors on `device`, the feature
+        matrix in the engine's patch dtype."""
+        out = {"w_sum": torch.from_numpy(self.w_sum).to(device, patch_dtype),
+               "stage_onehot": torch.from_numpy(self.stage_onehot).to(device)}
+        for name, v in self.trees().items():
+            t = torch.from_numpy(v)
+            out[name] = (t.long() if v.dtype.kind == "i" else t).to(device)
         return out
 
 
@@ -169,10 +178,10 @@ class CascadeEngine:
 
     RAW_GROUP_CAP = 256   # accepted windows entering grouping (pre-compact)
     OUT_GROUP_CAP = 64    # grouped detections leaving the device
-    MAX_CAPACITY = 32768  # survivor slots per level and matmul block
+    MAX_CAPACITY = 32768  # survivor slots per level and block
     DENSE_MAX_WEAK = 48   # the dense (kernel) block: the first stages whose
                           # cumulative weak-tree count stays <= this (>= 1)
-    # matmul blocks after the dense block: (stages, capacity as a fraction of
+    # the blocks after the dense block: (stages, capacity as a fraction of
     # the level's windows); None = every remaining stage. For frontalface_alt:
     # dense 3 stages → (5 stages, 45%) → (14 stages, 8%)
     BLOCK_PLAN = ((5, 0.45), (None, 0.08))
@@ -217,18 +226,29 @@ class CascadeEngine:
         self._level_plans = {
             li: DenseLevelPlan.make(self.levels[li], self._tables)
             for li, r in enumerate(self.routes) if r == "tilted"}
-        # the tilted route's survivor stages: one plan per level and block
-        self._survivor_plans = {
-            li: [SurvivorPlan.make(self.levels[li], blk.survivor)
-                 for blk in self._blocks]
-            for li in self._level_plans}
 
         dev = self.device
-        self._patch_dtype = (torch.float64 if self._needs_f64()
-                             else torch.float32)
-        self._blocks_dev = ([blk.to(dev, self._patch_dtype)
-                             for blk in self._blocks]
-                            if self._pyramid_lis else [])
+        if self._pyramid_lis:
+            # the pyramid route's survivor stages: patch x feature matmuls,
+            # on patches gathered at each window's pixel offsets
+            self._blocks = [self._matmul_block(blk) for blk in self._blocks]
+            self._patch_dtype = (torch.float64 if self._needs_f64()
+                                 else torch.float32)
+            self._blocks_dev = [blk.to(dev, self._patch_dtype)
+                                for blk in self._blocks]
+            self._img_poff_dev = {
+                li: torch.from_numpy((
+                    np.arange(cascade.window_h)[:, None] * self.levels[li].sw
+                    + np.arange(cascade.window_w)).reshape(-1)).to(dev)
+                for li in self._pyramid_lis}
+        # the tilted route's: one survivor-kernel plan per level and block
+        survivor = ([SurvivorBlock.make(
+            self._feat_rects, blk.feats, tree_stage=blk.tree_stage,
+            window=(cascade.window_w, cascade.window_h), **blk.trees())
+            for blk in self._blocks] if self._level_plans else [])
+        self._survivor_plans = {
+            li: [SurvivorPlan.make(self.levels[li], sb) for sb in survivor]
+            for li in self._level_plans}
         # each level's raw box by window id: (x, y) in original pixels,
         # the level's window size
         self._boxes_dev = [
@@ -236,11 +256,7 @@ class CascadeEngine:
                 mx[None, :], my[:, None], l.out_w, l.out_h),
                 -1).reshape(-1, 4).astype(np.int32)).to(dev)
             for l, (mx, my) in zip(self.levels, self._maps)]
-        self._img_poff_dev = [
-            torch.from_numpy(self._img_patch_dy * l.sw
-                             + self._img_patch_dx).long().to(dev)
-            for l in self.levels]
-        if dev.type == "cuda" and self._blocks and self._survivor_plans:
+        if dev.type == "cuda" and survivor:
             survivor_cuda.load(dev)
             for plans in self._survivor_plans.values():
                 for plan in plans:
@@ -266,15 +282,13 @@ class CascadeEngine:
             "memory)")
 
     def _needs_f64(self) -> bool:
-        """Whether a feature matmul's partial sums can reach 2^24: always
-        with tilted features (a tilted patch would hold absolute table
-        differences; the tilted route builds none, its survivor kernel sums
-        exactly in int32), else when sum(|weight| * largest patch entry) of
-        a feature does (patch entry (dy, dx) is at most 255*dy*dx)."""
-        most = (255 * self._patch_dy * self._patch_dx).astype(np.float64)
+        """Whether a feature matmul's partial sums can reach 2^24: when
+        sum(|weight| * largest patch entry) of a feature does (patch entry
+        (dy, dx) is at most 255*dy*dx)."""
+        most = 255.0 * np.outer(np.arange(self._ph),
+                                np.arange(self._pw)).reshape(-1)
         return any(
-            blk.w_tilt is not None
-            or float((np.abs(blk.w_sum) * most[:, None]).sum(0).max())
+            float((np.abs(blk.w_sum) * most[:, None]).sum(0).max())
             >= self.F32_EXACT
             for blk in self._blocks)
 
@@ -311,7 +325,7 @@ class CascadeEngine:
             stage_thr=c.stage_thresholds[:nd],
         )
 
-        # matmul blocks
+        # the blocks after the dense block
         self._blocks: list[_Block] = []
         s_lo = nd
         for n_stages, frac in self.BLOCK_PLAN:
@@ -334,20 +348,6 @@ class CascadeEngine:
                 np.rint(xs * l.factor).astype(np.int32),
                 np.rint(ys * l.factor).astype(np.int32),
             ))
-
-        # the (h0+1)x(w0+1) entries of a window's sum-table patch
-        dy, dx = np.meshgrid(np.arange(self._ph), np.arange(self._pw),
-                             indexing="ij")
-        self._patch_dy = dy.reshape(-1)
-        self._patch_dx = dx.reshape(-1)
-        # where no table left the dense phase, survivor patches are built
-        # from the LEVEL IMAGE (uint8, w0×h0): the patch-local integral of
-        # the window's pixels equals the doubly-relative sum-table patch
-        # entry for entry
-        dyi, dxi = np.meshgrid(np.arange(self._ph - 1),
-                               np.arange(self._pw - 1), indexing="ij")
-        self._img_patch_dy = dyi.reshape(-1)
-        self._img_patch_dx = dxi.reshape(-1)
 
     def _set_capacities(self, scale: int) -> None:
         """Per-level survivor capacities of each block, and the raw
@@ -382,40 +382,33 @@ class CascadeEngine:
 
     def _make_block(self, w_lo, w_hi, s_lo, s_hi, frac) -> _Block:
         c = self.cascade
-        used = sorted(
+        feats = sorted(
             {int(f) for f in np.concatenate(
                 [c.feat0[w_lo:w_hi], c.featL[w_lo:w_hi], c.featR[w_lo:w_hi]])}
         )
-        remap = {f: i for i, f in enumerate(used)}
-        PP = self._pw * self._ph
-        w_sum = np.zeros((PP, len(used)), np.float32)
-        w_tilt = np.zeros((PP, len(used)), np.float32) if c.has_tilted else None
-        for f in used:
-            i = remap[f]
-            for table, corners, wgt in self._feat_rects[f]:
-                tgt = w_sum if table == "sum" else w_tilt
-                for (dy, dx, s) in corners:
-                    assert 0 <= dy < self._ph and 0 <= dx < self._pw
-                    tgt[dy * self._pw + dx, i] += s * wgt
-        if w_tilt is not None and not w_tilt.any():
-            w_tilt = None
-        onehot = np.zeros((w_hi - w_lo, s_hi - s_lo), np.float32)
-        for i, s in enumerate(c.weak_stage[w_lo:w_hi]):
-            onehot[i, int(s) - s_lo] = 1.0
+        remap = {f: i for i, f in enumerate(feats)}
         rm = np.vectorize(lambda f: remap[int(f)], otypes=[np.int32])
-        trees = dict(
+        return _Block(
+            feats=feats,
             feat0=rm(c.feat0[w_lo:w_hi]), thr0=c.thr0[w_lo:w_hi],
             featL=rm(c.featL[w_lo:w_hi]), thrL=c.thrL[w_lo:w_hi],
             leavesL=c.leavesL[w_lo:w_hi],
             featR=rm(c.featR[w_lo:w_hi]), thrR=c.thrR[w_lo:w_hi],
             leavesR=c.leavesR[w_lo:w_hi],
-            stage_thr=c.stage_thresholds[s_lo:s_hi])
-        survivor = (SurvivorBlock.make(
-            self._feat_rects, used, tree_stage=c.weak_stage[w_lo:w_hi],
-            window=(c.window_w, c.window_h), **trees)
-            if self._uses_tilt else None)
-        return _Block(w_sum=w_sum, w_tilt=w_tilt, stage_onehot=onehot,
-                      cap_frac=frac, survivor=survivor, **trees)
+            tree_stage=c.weak_stage[w_lo:w_hi] - s_lo,
+            stage_thr=c.stage_thresholds[s_lo:s_hi], cap_frac=frac)
+
+    def _matmul_block(self, blk: _Block) -> _MatmulBlock:
+        """`blk` in the pyramid route's form (a cascade with no tilted
+        feature): each feature's weighted corners in its patch column."""
+        w_sum = np.zeros((self._pw * self._ph, len(blk.feats)), np.float32)
+        for i, f in enumerate(blk.feats):
+            for _, corners, wgt in self._feat_rects[f]:
+                for (dy, dx, s) in corners:
+                    assert 0 <= dy < self._ph and 0 <= dx < self._pw
+                    w_sum[dy * self._pw + dx, i] += s * wgt
+        onehot = np.eye(len(blk.stage_thr), dtype=np.float32)[blk.tree_stage]
+        return _MatmulBlock(**vars(blk), w_sum=w_sum, stage_onehot=onehot)
 
     # ------------------------------------------------------------- stages
     @staticmethod
@@ -456,77 +449,84 @@ class CascadeEngine:
         ssums = torch.matmul(wout, blk["stage_onehot"])
         return (ssums >= blk["stage_thr"]).all(dim=-1)
 
-    def _level_post(self, li, img, ii, iit, vnf, alive):
+    def _level_post(self, li, src, vnf, alive):
         """Strided dense-grid maps of level `li` → (boxes [B,cap,4] i32,
-        valid [B,cap], overflow [B]): compaction, then the matmul blocks.
-        Where the dense phase emitted the sum and tilted tables `ii`, `iit`
-        [B,sh+1,sw+1], each block is one ``survivor_eval`` on them; else
-        each block is a matmul on survivor patches rebuilt from the level
-        image `img` [B,sh,sw] u8."""
+        valid [B,cap], overflow [B]): compaction, then the blocks in the
+        form of the level's route, re-compacting the survivors before each.
+        `src` is what that form reads: the level image [B,sh,sw] u8
+        (``pyramid``) or the sum and tilted tables [B,sh+1,sw+1]
+        (``tilted``)."""
         with trace("vca.engine.survivor"):
             l, caps = self.levels[li], self._level_caps[li]
             B = alive.shape[0]
-            ny, nx, step = l.ny, l.nx, l.ystep
-            nwin = ny * nx
-            alive_flat = alive.reshape(B, nwin)
-            vnf_flat = vnf.reshape(B, nwin)
-
-            if not self._blocks:
-                # no stage past the dense block: emit the dense survivors
-                cap = min(nwin, self.MAX_CAPACITY * self.capacity_scale)
-                sel, sel_alive, count = self._compact(alive_flat, cap)
-                overflow = count > cap
-                win_ids = sel
-            else:
-                cap0 = caps[0]
-                sel, sel_alive, count = self._compact(alive_flat, cap0)
-                overflow = count > cap0
-                win_ids = sel
-                patch = None
-                if ii is None:
-                    # one-time patch gather: the patch-local integral
-                    y, x = (sel // nx) * step, (sel % nx) * step
-                    k0 = sel.shape[1]
-                    idx = (y * l.sw + x)[:, :, None] + self._img_poff_dev[li]
-                    pimg = img.reshape(B, -1).gather(
-                        1, idx.reshape(B, -1)).reshape(
-                            B, k0, self._ph - 1, self._pw - 1)
-                    local = torch.cumsum(
-                        torch.cumsum(pimg.to(torch.int32), dim=-1,
-                                     dtype=torch.int32),
-                        dim=-2, dtype=torch.int32)
-                    patch = F.pad(local, (1, 0, 1, 0)).reshape(B, k0, -1).to(
-                        self._patch_dtype)
-                    vnf_sel = vnf_flat.gather(1, sel)
-
-                for bi in range(len(self._blocks)):
-                    if bi > 0 and caps[bi] < sel_alive.shape[1]:
-                        # re-compact among current survivors
-                        sel2, sel_alive, count = self._compact(sel_alive,
-                                                               caps[bi])
-                        overflow |= count > caps[bi]
-                        win_ids = win_ids.gather(1, sel2)
-                        if patch is not None:
-                            patch = patch.gather(1, sel2[:, :, None].expand(
-                                -1, -1, patch.shape[2]))
-                            vnf_sel = vnf_sel.gather(1, sel2)
-                    if patch is None:
-                        sel_alive = survivor_cuda.survivor_eval(
-                            ii, iit, vnf, win_ids, sel_alive,
-                            self._survivor_plans[li][bi])
-                    else:
-                        sel_alive = sel_alive & self._block_eval(
-                            self._blocks_dev[bi], patch, vnf_sel)
-
+            cap = caps[0] if caps else min(
+                l.n_windows, self.MAX_CAPACITY * self.capacity_scale)
+            win_ids, sel_alive, count = self._compact(alive.reshape(B, -1),
+                                                      cap)
+            overflow = count > cap
+            if self._blocks:
+                stages = (self._matmul_stages
+                          if self.routes[li] == "pyramid"
+                          else self._table_stages)
+                win_ids, sel_alive, overflow = stages(
+                    li, src, vnf, win_ids, sel_alive, overflow)
             return self._boxes_dev[li][win_ids], sel_alive, overflow
 
+    def _recompact(self, cap, alive, overflow, slots):
+        """Before a block of capacity `cap`: the survivors `alive` [B,k]
+        re-compacted to `cap` slots when that is fewer, and every per-slot
+        tensor of `slots` ([B,k,...], window ids first) taken to the new
+        slots → (alive, overflow, slots)."""
+        if cap >= alive.shape[1]:
+            return alive, overflow, slots
+        sel, alive, count = self._compact(alive, cap)
+        return alive, overflow | (count > cap), [
+            t.gather(1, sel.reshape(*sel.shape, *[1] * (t.ndim - 2)).expand(
+                *sel.shape, *t.shape[2:])) for t in slots]
+
+    def _matmul_stages(self, li, img, vnf, win_ids, alive, overflow):
+        """The ``pyramid`` route's blocks: each survivor's sum-table patch,
+        the patch-local integral of its window in the level image `img`,
+        gathered once and taken along on re-compaction; a block is one
+        ``_block_eval``."""
+        l = self.levels[li]
+        B, k = win_ids.shape
+        y, x = (win_ids // l.nx) * l.ystep, (win_ids % l.nx) * l.ystep
+        idx = (y * l.sw + x)[:, :, None] + self._img_poff_dev[li]
+        pimg = img.reshape(B, -1).gather(1, idx.reshape(B, -1)).reshape(
+            B, k, self._ph - 1, self._pw - 1)
+        local = torch.cumsum(
+            torch.cumsum(pimg.to(torch.int32), dim=-1, dtype=torch.int32),
+            dim=-2, dtype=torch.int32)
+        # the slots list holds the only reference to each level's patches,
+        # so that a re-compaction frees the ones it replaces
+        slots = [win_ids, F.pad(local, (1, 0, 1, 0)).reshape(B, k, -1).to(
+            self._patch_dtype), vnf.reshape(B, -1).gather(1, win_ids)]
+        for cap, blk in zip(self._level_caps[li], self._blocks_dev):
+            alive, overflow, slots = self._recompact(cap, alive, overflow,
+                                                     slots)
+            alive = alive & self._block_eval(blk, *slots[1:])
+        return slots[0], alive, overflow
+
+    def _table_stages(self, li, tables, vnf, win_ids, alive, overflow):
+        """The ``tilted`` route's blocks: a block is one ``survivor_eval``
+        on the level's sum and tilted tables."""
+        for cap, plan in zip(self._level_caps[li], self._survivor_plans[li]):
+            alive, overflow, (win_ids,) = self._recompact(cap, alive,
+                                                          overflow, [win_ids])
+            alive = survivor_cuda.survivor_eval(*tables, vnf, win_ids, alive,
+                                                plan)
+        return win_ids, alive, overflow
+
     def _dense_level(self, gray: torch.Tensor, li: int):
-        """Tilted level `li` → (img, ii, iit, vnf, alive)."""
+        """Tilted level `li` → ([ii, iit], vnf, alive)."""
         with trace("vca.engine.dense"):
             l = self.levels[li]
             same = (l.sw, l.sh) == (self.image_w, self.image_h)
             img = gray if same else resize_linear_exact(gray, (l.sw, l.sh))
-            return (img, *dense_level_tilted(img, self._level_plans[li]))
+            *tables, vnf, alive = dense_level_tilted(img,
+                                                     self._level_plans[li])
+            return tables, vnf, alive
 
     def _detect_impl(self, gray: torch.Tensor):
         """gray [B, H, W] uint8 → (boxes [B, TC, 4] i32, valid [B, TC] bool,
@@ -536,16 +536,14 @@ class CascadeEngine:
             with trace("vca.engine.dense"):
                 levels = pyramid_dense_phase(gray, self._plan)
             for li, (img_l, vnf, alive) in zip(self._pyramid_lis, levels):
-                dense[li] = (gray if img_l is None else img_l, None, None,
-                             vnf, alive)
+                dense[li] = (gray if img_l is None else img_l, vnf, alive)
         out_boxes, out_valid = [], []
         overflow = torch.zeros((gray.shape[0],), dtype=torch.bool,
                                device=gray.device)
         for li in range(len(self.levels)):
-            img, ii, iit, vnf, alive = (dense.pop(li, None)
-                                        or self._dense_level(gray, li))
-            boxes, valid, ovf = self._level_post(li, img, ii, iit, vnf,
-                                                 alive.bool())
+            src, vnf, alive = (dense.pop(li, None)
+                               or self._dense_level(gray, li))
+            boxes, valid, ovf = self._level_post(li, src, vnf, alive.bool())
             out_boxes.append(boxes)
             out_valid.append(valid)
             overflow |= ovf

@@ -19,7 +19,7 @@ Evaluation semantics are IDENTICAL to cascade/engine.py by construction:
 
 Features for ALL samples evaluate as one (samples × patch-pixels) ×
 (patch-pixels × features) matmul — the same corner-weight decomposition
-the engine's matmul blocks use (engine.py:_make_block) — so training is a
+the engine's pyramid route uses (engine.py:_matmul_block) — so training is a
 couple of big GEMMs per boosting round.
 
 A copy of ``nubomedia_vca_tpu/cascade/train.py`` in which those GEMMs

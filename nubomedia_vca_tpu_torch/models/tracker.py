@@ -18,11 +18,12 @@ area filter and distance merge run on the host with the reference's exact
 iteration order (__join_objects, gstnubotracker.cpp:171-200), copied from
 the JAX package.
 
-Two compactions of the components: ``tracker_step`` keeps the JAX
-package's (``max_blobs`` slots, earliest root first); ``Tracker.process``
-reports every seeded component in segmentMotion's order, the raster order
-of each component's first seed pixel (``segment_motion``), since
-``join_objects`` keeps the first merge partner it finds.
+One compaction of the components: ``segment_motion`` reports every
+seeded component in segmentMotion's order, the raster order of each
+component's first seed pixel, since ``join_objects`` keeps the first merge
+partner it finds. The JAX package caps the components in root order; the
+port's parity tests rebuild that compaction over the port's labels. No
+motion gradient is computed: no blob depends on it.
 
 The JAX package's ``lax.while_loop`` becomes a Python loop whose exit test
 reads a device flag once every ``SEG_CHECK_EVERY`` iterations (one host
@@ -43,7 +44,6 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..cascade.engine import _resolve_device
 from ..utils.tracing import count, trace
@@ -65,9 +65,6 @@ class TrackerConfig:
     events_ms: int = 30001
     mhi_duration: float = 0.2
     seg_thresh: float = 0.05
-    # slots of `tracker_step`'s compaction; `Tracker.process` reports every
-    # component whatever this is
-    max_blobs: int = 32
 
 
 @dataclasses.dataclass
@@ -226,26 +223,6 @@ def _boxes(lab_flat, sel, H, W):
     return torch.stack([rx, ry, rw, rh], dim=-1)
 
 
-def _segment(mhi, ts, seg_thresh, max_blobs, iterations=None):
-    """Seeded connected components over the 4-neighbor |Δmhi| <= seg_thresh
-    graph, compacted to `max_blobs` slots: the earliest roots first.
-    Returns (rects [K,4] int32 x,y,w,h, valid [K] bool); appends the
-    label-propagation iterations run to `iterations` when given."""
-    H, W = mhi.shape
-    n = H * W
-    lab_flat = _propagate(mhi, seg_thresh, iterations)
-    flat_idx = torch.arange(n, dtype=torch.int64, device=mhi.device)
-    seeds = (mhi == ts).reshape(-1).to(torch.int32)
-    seeded = _reduce(lab_flat, 0, seeds, "amax") > 0
-    is_root = (lab_flat == flat_idx) & seeded
-    # compact to capacity: earliest roots first (root keys are distinct; a
-    # zero-key slot is masked by `valid` below)
-    keys = torch.where(is_root, torch.arange(n, 0, -1, device=mhi.device), 0)
-    sel = torch.topk(keys, max_blobs).indices
-    valid = is_root[sel]
-    return torch.where(valid[:, None], _boxes(lab_flat, sel, H, W), 0), valid
-
-
 def segment_motion(mhi, ts, seg_thresh, iterations=None,
                    graphed: _GraphedSteps | None = None) -> torch.Tensor:
     """cv::motempl::segmentMotion's rects: every component of the
@@ -266,35 +243,6 @@ def segment_motion(mhi, ts, seg_thresh, iterations=None,
     roots = torch.nonzero((lab_flat == flat_idx) & (first_seed < n))[:, 0]
     sel = roots[torch.argsort(first_seed[roots])]
     return _boxes(lab_flat, sel, H, W)
-
-
-def _motion_gradient(mhi, delta1, delta2):
-    """cv::motempl::calcMotionGradient (aperture 3): Sobel orientation in
-    degrees + validity mask from the local min/max spread of the MHI."""
-    kd = (-1.0, 0.0, 1.0)
-    ks = (1.0, 2.0, 1.0)
-    # replicate border, like OpenCV's BORDER_REPLICATE
-    p = F.pad(mhi[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-
-    def sep_conv(kx, ky):
-        horiz = p[:, :-2] * kx[0] + p[:, 1:-1] * kx[1] + p[:, 2:] * kx[2]
-        return (horiz[:-2] * ky[0] + horiz[1:-1] * ky[1]
-                + horiz[2:] * ky[2])
-
-    dx = sep_conv(kd, ks)
-    dy = sep_conv(ks, kd)
-    orient = torch.rad2deg(torch.atan2(dy, dx))
-    orient = torch.where(orient < 0, orient + 360.0, orient)
-    # local min/max over the aperture window (erode/dilate)
-    H, W = mhi.shape
-    win = torch.stack([p[a:a + H, b:b + W] for a in range(3)
-                       for b in range(3)])
-    spread = win.amax(0) - win.amin(0)
-    lo, hi = min(delta1, delta2), max(delta1, delta2)
-    mask = (spread >= lo) & (spread <= hi)
-    small = (dx.abs() < 1e-5) & (dy.abs() < 1e-5)
-    orient = torch.where(small, 0.0, orient)
-    return mask, orient
 
 
 def _as_uint8(x, dev: torch.device) -> torch.Tensor:
@@ -320,37 +268,6 @@ def _update(state: TrackerState, gray, ts, threshold, mhi_duration):
     return TrackerState(prev_gray=gray, mhi=mhi,
                         initialized=torch.ones((), dtype=torch.bool,
                                                device=dev)), ts
-
-
-def tracker_step(state: TrackerState, gray, ts, *, threshold, mhi_duration,
-                 seg_thresh, max_blobs, iterations=None):
-    """One frame of the tracker recurrence on the state's device. Returns
-    (new_state, rects, valid, mask, orient), the rects compacted to
-    `max_blobs` slots, earliest component roots first."""
-    new_state, ts = _update(state, gray, ts, threshold, mhi_duration)
-    mhi = new_state.mhi
-    rects, valid = _segment(mhi, ts, seg_thresh, max_blobs, iterations)
-    valid = valid & state.initialized
-    mask, orient = _motion_gradient(mhi, 0.05, 0.5)
-    return new_state, rects, valid, mask, orient
-
-
-def tracker_scan(state: TrackerState, grays, timestamps, *, threshold,
-                 mhi_duration, seg_thresh, max_blobs, iterations=None):
-    """A whole frame window: grays [T,H,W], timestamps [T] → (final state,
-    rects [T,K,4], valid [T,K]), the step applied frame by frame."""
-    dev = state.mhi.device
-    grays = _as_uint8(grays, dev)
-    ts_all = torch.as_tensor(np.asarray(timestamps, np.float32), device=dev)
-    all_rects, all_valid = [], []
-    for g, ts in zip(grays, ts_all):
-        state, rects, valid, _, _ = tracker_step(
-            state, g, ts, threshold=threshold, mhi_duration=mhi_duration,
-            seg_thresh=seg_thresh, max_blobs=max_blobs,
-            iterations=iterations)
-        all_rects.append(rects)
-        all_valid.append(valid)
-    return state, torch.stack(all_rects), torch.stack(all_valid)
 
 
 # ----------------------------------------------------------------- host layer

@@ -1,4 +1,4 @@
-"""Survivor stages of a tilted cascade: the stages of one matmul block for
+"""Survivor stages of a tilted cascade: the stages of one block for
 the compacted survivors of one pyramid level, read from the level's sum
 and tilted tables in place, in ``csrc/survivor_eval.cu``.
 
@@ -63,7 +63,7 @@ INT32_LIMIT = 2 ** 31
 
 @dataclasses.dataclass(frozen=True)
 class SurvivorBlock:
-    """One matmul block of a tilted cascade as the survivor kernel reads
+    """One block of a tilted cascade's stages as the survivor kernel reads
     it: its features' rects and its weak trees, for no level in
     particular. Feature ids are block-local."""
 

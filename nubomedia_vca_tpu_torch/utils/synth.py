@@ -125,7 +125,7 @@ def _fill_triangle(img: np.ndarray, pts, value: int) -> None:
     img[y0:y1, x0:x1][inside] = value
 
 
-def _fill_segment(img: np.ndarray, p, q, thickness: int, value: int) -> None:
+def _fill_line(img: np.ndarray, p, q, thickness: int, value: int) -> None:
     """Draw the segment p-q `thickness` px wide (round ends) in place."""
     (px, py), (qx, qy) = p, q
     r = max(thickness, 1) / 2.0
@@ -164,7 +164,7 @@ def draw_profile_face(img: np.ndarray, cx: int, cy: int, s: int,
     _fill_ellipse(img, ex2, ey2 - int(0.13 * s), int(0.16 * s),
                   int(0.05 * s), 90)                          # brow
     _fill_ellipse(img, ex2, ey2, int(0.1 * s), int(0.07 * s), 35)   # eye
-    _fill_segment(img, (fx + int(0.02 * s), cy + int(0.42 * s)),
+    _fill_line(img, (fx + int(0.02 * s), cy + int(0.42 * s)),
                   (fx + int(0.26 * s), cy + int(0.44 * s)), max(1, s // 14),
                   70)                                         # mouth
     eax, eay = cx + int(0.3 * s), cy + int(0.06 * s)

@@ -214,7 +214,7 @@ def test_survivor_kernel_equals_plain_version(cuda_device, name):
     work = _part_work((320, 180), n=64).to(cuda_device)
     n_in, n_pass = [0, 0], [0, 0]
     for li in range(len(eng.levels)):
-        _, ii, iit, vnf, alive = eng._dense_level(work, li)
+        (ii, iit), vnf, alive = eng._dense_level(work, li)
         caps = eng._level_caps[li]
         sel, sel_alive, _ = eng._compact(alive.bool().reshape(64, -1),
                                          caps[0])
@@ -590,23 +590,22 @@ def test_ear_detector_cuda_equals_cpu(cuda_device, pairing):
 
 
 def test_tracker_step_cuda_equals_cpu(cuda_device):
-    """Blob rects, valid, MHI and mask equal the CPU run's frame by frame;
-    the orientation within 1e-3 degrees on the mask."""
+    """The MHI and ``segment_motion``'s rects (every seeded component, in
+    first-seed order) equal the CPU run's frame by frame, and
+    ``Tracker.process``'s blobs over the clip the CPU's."""
     clip = blob_clip(8)
-    kw = dict(threshold=20, mhi_duration=0.2, seg_thresh=0.05, max_blobs=32)
     st_g = tracker.init_state(240, 320, cuda_device)
     st_c = tracker.init_state(240, 320, "cpu")
+    n = 0
     for i, fr in enumerate(clip):
-        g = tracker.tracker_step(st_g, fr, i / 30.0, **kw)
-        c = tracker.tracker_step(st_c, fr, i / 30.0, **kw)
-        for a, b in zip(g[1:4], c[1:4]):
-            assert torch.equal(a.cpu(), b), i
-        assert torch.equal(g[0].mhi.cpu(), c[0].mhi)
-        m = c[3]
-        if m.any():
-            assert float((g[4].cpu() - c[4]).abs()[m].max()) <= 1e-3
-        st_g, st_c = g[0], c[0]
-    assert int(c[2].sum()) > 0
+        st_g, ts_g = tracker._update(st_g, fr, i / 30.0, 20, 0.2)
+        st_c, ts_c = tracker._update(st_c, fr, i / 30.0, 20, 0.2)
+        assert torch.equal(st_g.mhi.cpu(), st_c.mhi), i
+        got = tracker.segment_motion(st_g.mhi, ts_g, 0.05)
+        want = tracker.segment_motion(st_c.mhi, ts_c, 0.05)
+        assert torch.equal(got.cpu(), want), i
+        n += len(want)
+    assert n > 0
     gpu = tracker.Tracker((320, 240), device=cuda_device)
     cpu = tracker.Tracker((320, 240), device="cpu")
     assert gpu.process(clip) == cpu.process(clip)

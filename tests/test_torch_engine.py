@@ -93,14 +93,18 @@ def test_host_tables_equal(engines):
     assert peng._feat_rects == jeng._feat_rects
     assert len(peng._blocks) == len(jeng._blocks) > 0
     for pb, jb in zip(peng._blocks, jeng._blocks):
-        for f in dataclasses.fields(jb):
-            pv, jv = getattr(pb, f.name), getattr(jb, f.name)
-            if jv is None:            # w_tilt of a non-tilted cascade
-                assert pv is None, f.name
-            elif isinstance(jv, np.ndarray):
-                assert pv.dtype == jv.dtype and np.array_equal(pv, jv), f.name
+        assert jb.w_tilt is None      # the face cascade has no tilted feature
+        # the port's matmul block: the JAX block's fields less w_tilt, and
+        # the plan's features and tree stages (the JAX block has no such)
+        names = {f.name for f in dataclasses.fields(pb)}
+        assert names == ({f.name for f in dataclasses.fields(jb)}
+                         - {"w_tilt"}) | {"feats", "tree_stage"}
+        for name in names - {"feats", "tree_stage"}:
+            pv, jv = getattr(pb, name), getattr(jb, name)
+            if isinstance(jv, np.ndarray):
+                assert pv.dtype == jv.dtype and np.array_equal(pv, jv), name
             else:
-                assert pv == jv, f.name
+                assert pv == jv, name
     assert peng._level_caps == jeng._level_caps
     assert peng.total_capacity == jeng.total_capacity
     for (px, py), (jx, jy) in zip(peng._maps, jeng._maps):
@@ -165,9 +169,10 @@ def _raw_equal(got, want):
 def test_tilted_engine_matches_jax(side, n_stages, n_blocks):
     """A tilted cascade (the eyes' 2splits, cut to a few stages so that
     synthetic faces pass them) at 96x72: every level takes the tilted
-    dense kernel's plain version, survivors gather sum- and tilted-table
-    patches, and the matmul blocks read tilted features. The raw output
-    equals the JAX engine's slot for slot."""
+    dense kernel's plain version, and each block is one evaluation of the
+    survivor kernel's plain version on the sum and tilted tables, the
+    engine building no matmul form. The raw output equals the JAX
+    engine's slot for slot."""
     casc = _truncated(load_cascade_xml(
         f"/usr/share/opencv4/haarcascades/haarcascade_{side}eye_2splits.xml"),
         n_stages)
@@ -175,8 +180,12 @@ def test_tilted_engine_matches_jax(side, n_stages, n_blocks):
                          (96, 72), 1.25, device="cpu")
     assert peng.routes == ["tilted"] * len(peng.levels)
     assert len(peng._blocks) == n_blocks
-    assert all(b.w_tilt is not None for b in peng._blocks)
-    assert peng._patch_dtype == torch.float64
+    assert not any(hasattr(b, "w_sum") or hasattr(b, "stage_onehot")
+                   for b in peng._blocks)
+    assert not hasattr(peng, "_patch_dtype")
+    assert not hasattr(peng, "_blocks_dev")
+    assert [len(peng._survivor_plans[li]) for li in range(
+        len(peng.levels))] == [n_blocks] * len(peng.levels)
     jeng = JaxEngine(casc, (96, 72), 1.25)
     faces = np.stack([face_scene(96, 72, faces=((48, 36, s),), seed=s)
                       for s in (14, 18, 22, 26, 30)])

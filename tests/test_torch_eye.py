@@ -71,7 +71,7 @@ def test_eye_engine_dense_phase_is_not_vacuous(detectors, clip, side):
     assert eng.routes == ["tilted"] * len(eng.levels)
     work = equalize_hist(resize_linear_exact(
         torch.from_numpy(clip), (eng.image_w, eng.image_h)))
-    alive = sum(int(eng._dense_level(work, li)[4].sum())
+    alive = sum(int(eng._dense_level(work, li)[2].sum())
                 for li in range(len(eng.levels)))
     assert alive > 0
     got = eng.detect_raw(work)

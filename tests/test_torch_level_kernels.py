@@ -643,7 +643,10 @@ def test_routing_at_720p():
         assert max(p.smem_bytes for p in plans) == plans[0].smem_bytes == 4 * (
             3 * rows * pitch + n_weak * TREE_WORDS + e._tables.n_dense)
         assert plans[0].smem_bytes < MAX_SMEM_BYTES // 4
-        assert e._plan is None and e._patch_dtype == torch.float64
+        assert e._plan is None and not hasattr(e, "_patch_dtype")
+        assert not any(hasattr(b, "w_sum") for b in e._blocks)
+        assert [len(e._survivor_plans[li]) for li in range(n_levels)] == [
+            len(e._blocks)] * n_levels and len(e._blocks) == 2
 
 
 def test_level_too_wide_raises():

@@ -3,7 +3,9 @@ version of ``ops/cuda/survivor_cuda.survivor_eval`` (the kernel is
 ``csrc/survivor_eval.cu``), against the evaluation it replaced: each
 survivor slot's patch of the sum and tilted tables, cast to float64 and
 multiplied by the block's dense feature matrices, then the weak trees'
-selects and the stage sums as a matmul with the stage one-hot matrix.
+selects and the stage sums as a matmul with the stage one-hot matrix. The
+engine keeps none of those matrices: the test builds them from the
+cascade.
 
 On the bundled right-eye, left-eye and smile (mouth) cascades at the part
 chain's 320x180, factor 1.1, on equalized synthetic 720p faces: every
@@ -52,7 +54,7 @@ def work():
 
 @pytest.fixture(scope="module")
 def dense(work):
-    """Per cascade, each level's dense phase: (img, ii, iit, vnf, alive)."""
+    """Per cascade, each level's dense phase: ((ii, iit), vnf, alive)."""
     out = {}
     for part in CASCADES:
         eng = _engine(part)
@@ -63,31 +65,51 @@ def dense(work):
 
 
 def _patch_flags(eng, li, ii, iit, vnf, win_ids, alive, bi):
-    """The replaced evaluation of block `bi`: float64 patch matmuls, tree
-    selects, stage sums by the one-hot matmul → alive & passed."""
-    l, blk = eng.levels[li], eng._blocks[bi]
+    """The replaced evaluation of block `bi`, its matrices built here from
+    the engine's feature rects and the cascade's trees: each slot's patch
+    of both tables, cast to float64, times the dense [patch, features]
+    matrices of the block's features; tree selects; stage sums by the
+    one-hot matmul → alive & passed."""
+    c, l = eng.cascade, eng.levels[li]
+    pw, ph = c.window_w + 1, c.window_h + 1
+    s_lo = eng.n_dense_stages + sum(len(b.stage_thr)
+                                    for b in eng._blocks[:bi])
+    s_hi = s_lo + len(eng._blocks[bi].stage_thr)
+    trees = np.flatnonzero((c.weak_stage >= s_lo) & (c.weak_stage < s_hi))
+    used = np.unique(np.concatenate(
+        [c.feat0[trees], c.featL[trees], c.featR[trees]]))
+    w = {t: np.zeros((ph * pw, len(used)), np.float32)
+         for t in ("sum", "tilt")}
+    for i, f in enumerate(used):
+        for table, corners, wgt in eng._feat_rects[f]:
+            for dy, dx, s in corners:
+                assert 0 <= dy < ph and 0 <= dx < pw
+                w[table][dy * pw + dx, i] += s * wgt
+    onehot = np.eye(s_hi - s_lo, dtype=np.float32)[
+        c.weak_stage[trees] - s_lo]
+
     B, k = win_ids.shape
     y, x = (win_ids // l.nx) * l.ystep, (win_ids % l.nx) * l.ystep
-    poff = torch.from_numpy(eng._patch_dy * (l.sw + 1) + eng._patch_dx)
-    idx = ((y * (l.sw + 1) + x)[:, :, None] + poff.long()).reshape(B, -1)
-    p = ii.reshape(B, -1).gather(1, idx).reshape(B, k, eng._ph, eng._pw)
+    dy, dx = np.meshgrid(np.arange(ph), np.arange(pw), indexing="ij")
+    poff = torch.from_numpy((dy * (l.sw + 1) + dx).reshape(-1))
+    idx = ((y * (l.sw + 1) + x)[:, :, None] + poff).reshape(B, -1)
+    p = ii.reshape(B, -1).gather(1, idx).reshape(B, k, ph, pw)
     p = (p - p[:, :, :1, :] - p[:, :, :, :1] + p[:, :, :1, :1])
     pt = iit.reshape(B, -1).gather(1, idx).reshape(B, k, -1)
     pt = pt - pt[:, :, :1]
-    w_sum, w_tilt = (torch.from_numpy(w).double()
-                     for w in (blk.w_sum, blk.w_tilt))
-    feats = p.reshape(B, k, -1).double() @ w_sum + pt.double() @ w_tilt
-    vals = feats.float() * vnf.reshape(B, -1).gather(1, win_ids)[:, :, None]
     t = lambda a: torch.from_numpy(np.asarray(a))
-    v0, vL, vR = (vals[..., t(f).long()]
-                  for f in (blk.feat0, blk.featL, blk.featR))
-    lv = torch.where(vL < t(blk.thrL), t(blk.leavesL)[:, 0],
-                     t(blk.leavesL)[:, 1])
-    rv = torch.where(vR < t(blk.thrR), t(blk.leavesR)[:, 0],
-                     t(blk.leavesR)[:, 1])
-    wout = torch.where(v0 < t(blk.thr0), lv, rv)
-    ssums = wout @ t(blk.stage_onehot)
-    return alive & (ssums >= t(blk.stage_thr)).all(dim=-1)
+    feats = (p.reshape(B, k, -1).double() @ t(w["sum"]).double()
+             + pt.double() @ t(w["tilt"]).double())
+    vals = feats.float() * vnf.reshape(B, -1).gather(1, win_ids)[:, :, None]
+    v0, vL, vR = (vals[..., t(np.searchsorted(used, f[trees]))]
+                  for f in (c.feat0, c.featL, c.featR))
+    lv = torch.where(vL < t(c.thrL[trees]), t(c.leavesL[trees])[:, 0],
+                     t(c.leavesL[trees])[:, 1])
+    rv = torch.where(vR < t(c.thrR[trees]), t(c.leavesR[trees])[:, 0],
+                     t(c.leavesR[trees])[:, 1])
+    wout = torch.where(v0 < t(c.thr0[trees]), lv, rv)
+    ssums = wout @ t(onehot)
+    return alive & (ssums >= t(c.stage_thresholds[s_lo:s_hi])).all(dim=-1)
 
 
 def _cut_caps(eng):
@@ -111,7 +133,7 @@ def test_survivor_stages_equal_patch_matmul(dense, monkeypatch, part, cut):
     if cut == "level_caps":
         _cut_caps(eng)
     n_in, n_pass, n_ovf = [0, 0], [0, 0], 0
-    for li, (img, ii, iit, vnf, alive) in enumerate(dense[part]):
+    for li, ((ii, iit), vnf, alive) in enumerate(dense[part]):
         B = alive.shape[0]
         caps = eng._level_caps[li]
         sel, sel_alive, count = eng._compact(alive.bool().reshape(B, -1),
@@ -131,7 +153,7 @@ def test_survivor_stages_equal_patch_matmul(dense, monkeypatch, part, cut):
             n_in[bi] += int(sel_alive.sum())
             n_pass[bi] += int(got.sum())
             sel_alive = got
-        boxes, valid, ovf = eng._level_post(li, img, ii, iit, vnf,
+        boxes, valid, ovf = eng._level_post(li, (ii, iit), vnf,
                                             alive.bool())
         l, (map_x, map_y) = eng.levels[li], eng._maps[li]
         assert torch.equal(valid, sel_alive), li
@@ -165,7 +187,7 @@ def test_survivor_eval_checks_inputs(dense):
     """The wrapper raises on tables, maps or slots it does not take, and on
     a device with no kernel."""
     eng = _engine("right")
-    img, ii, iit, vnf, alive = dense["right"][3]
+    (ii, iit), vnf, alive = dense["right"][3]
     plan = eng._survivor_plans[3][0]
     B = ii.shape[0]
     win = torch.zeros((B, 8), dtype=torch.int64)
@@ -186,5 +208,5 @@ def test_survivor_eval_checks_inputs(dense):
         survivor_cuda.survivor_eval(ii, iit, vnf, win.to("meta"),
                                     live, plan)
     before = survivor_cuda.survivor_eval.launches
-    eng._level_post(3, img, ii, iit, vnf, alive.bool())
+    eng._level_post(3, (ii, iit), vnf, alive.bool())
     assert survivor_cuda.survivor_eval.launches == before

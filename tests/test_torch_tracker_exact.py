@@ -4,8 +4,9 @@ the element computes them) on the CPU, frame for frame, order included:
 
 * on the motion archive footage (``vcabench/frozen/motion.py``) at
   160x90, both streams, clips played forward then backward;
-* on a clip with more seeded components than ``TrackerConfig.max_blobs``,
-  where the moving object's root comes after them in raster order;
+* on a clip with more seeded components than the JAX package's
+  ``TrackerConfig.max_blobs``, where the moving object's root comes after
+  them in raster order;
 * on a clip where the raster order of the components' first seed pixels
   differs from that of their roots (an object moving down, its older
   trail above another object's seeds);
@@ -27,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from nubomedia_vca_tpu.models.tracker import \
+    TrackerConfig as JaxTrackerConfig
 from nubomedia_vca_tpu_torch.models.tracker import Tracker, TrackerConfig
 from nubomedia_vca_tpu_torch.utils import tracing
 from vcabench.drivers import motion_archive
@@ -108,7 +111,7 @@ def test_every_seeded_component_past_max_blobs():
     want = ref.TrackerFilter(_cfg(), "cpu").process(0, clip)
     assert got == want
     assert all(len(b) == 1 for b in want[1:])      # the mover, every frame
-    assert seeded > 2 * TrackerConfig().max_blobs
+    assert seeded > 2 * JaxTrackerConfig().max_blobs
 
 
 def test_blobs_in_first_seed_order():

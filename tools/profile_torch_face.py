@@ -108,8 +108,7 @@ def main() -> int:
         rows.append((f"level {li} survivors ({eng.levels[li].sw}x"
                      f"{eng.levels[li].sh})",
                      lambda li=li, img=img, vnf=vnf, alive=alive:
-                     eng._level_post(li, img, None, None, vnf,
-                                     alive.bool())))
+                     eng._level_post(li, img, vnf, alive.bool())))
     rows.append(("grouping", lambda: eng.group_device(raw, 3)))
     rows.append(("whole device path", lambda: eng.detect_grouped(prep(), 3)))
     for name, fn in rows:

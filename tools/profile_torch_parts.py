@@ -10,8 +10,8 @@ with the card's name and power limit:
   thread spends issuing the stage) — where host ms exceeds device ms the
   stage is launch-bound. Stages: the face and part images (resize +
   equalize), the face pass (detection + grouping), and per part engine the
-  dense phase of each level route (pyramid kernel; resize + row-strip
-  kernel; resize + the tilted kernels), for a tilted engine its table pass
+  dense phase of each level route (pyramid kernel; resize + the tilted
+  kernels), for a tilted engine its table pass
   (integral kernel + tilted-table kernel) and its evaluation kernel alone,
   the survivor stages of all levels, and the candidate compaction;
 * the whole device pass's ms per batch, and the profiler's device busy
@@ -64,12 +64,11 @@ def timed(fn, reps=REPS):
 
 def engine_stages(name, eng, work):
     """(stage name, fn) rows of one engine on its work images."""
-    routes = eng.routes
     dense = {}
     if eng._plan is not None:
         for li, (img, vnf, alive) in zip(eng._pyramid_lis,
                                          pyramid_dense_phase(work, eng._plan)):
-            dense[li] = (work if img is None else img, None, None, vnf, alive)
+            dense[li] = (work if img is None else img, vnf, alive)
     for li in range(len(eng.levels)):
         if li not in dense:
             dense[li] = eng._dense_level(work, li)
@@ -78,18 +77,14 @@ def engine_stages(name, eng, work):
         rows.append((f"{name} dense: pyramid kernel "
                      f"({len(eng._pyramid_lis)} levels)",
                      lambda: pyramid_dense_phase(work, eng._plan)))
-    for route in ("strips", "tilted"):
-        lis = [li for li, r in enumerate(routes) if r == route]
-        if lis:
-            rows.append((f"{name} dense: {route} ({len(lis)} levels)",
-                         lambda lis=lis: [eng._dense_level(work, li)
-                                          for li in lis]))
-    tilted = [li for li, r in enumerate(routes) if r == "tilted"]
+    tilted = [li for li, r in enumerate(eng.routes) if r == "tilted"]
     if tilted:
-        imgs = {li: dense[li][0] for li in tilted}
-        tables = {li: (ii, sq, iit) for li in tilted
-                  for (ii, sq), iit in [(integral_tables(imgs[li]),
-                                         dense[li][2])]}
+        rows.append((f"{name} dense: tilted ({len(tilted)} levels)",
+                     lambda: [eng._dense_level(work, li) for li in tilted]))
+        imgs = {li: resize_linear_exact(work, (l.sw, l.sh))
+                for li in tilted for l in [eng.levels[li]]}
+        tables = {li: (ii, sq, dense[li][0][1]) for li in tilted
+                  for ii, sq in [integral_tables(imgs[li])]}
         rows.append((f"{name} dense: tilted table pass, integral kernel + "
                      f"tilted table ({len(tilted)} levels)",
                      lambda: [tilted_table(integral_tables(imgs[li])[0])
@@ -99,9 +94,8 @@ def engine_stages(name, eng, work):
                      lambda: [_tilted_eval(*tables[li], eng._level_plans[li])
                               for li in tilted]))
     rows.append((f"{name} survivors ({len(eng.levels)} levels)",
-                 lambda: [eng._level_post(li, *dense[li][:4],
-                                          dense[li][4].bool())
-                          for li in range(len(eng.levels))]))
+                 lambda: [eng._level_post(li, src, vnf, alive.bool())
+                          for li, (src, vnf, alive) in dense.items()]))
     raw = eng._detect_impl(work)
     rows.append((f"{name} compact_raw", lambda: eng.compact_raw(raw)))
     return rows
