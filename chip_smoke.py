@@ -14,7 +14,7 @@ script ``bench_torch.py``.
 Phases, each printing its findings, any failure ending the run non-zero:
 
 1. device check: CUDA present; card name and power limit; torch/CUDA;
-2. build: compile the five CUDA sources with nvcc, one process each, and
+2. build: compile the six CUDA sources with nvcc, one process each, and
    the native ingest with g++, all started together (ptxas registers,
    spills and shared memory per kernel);
 3. kernels vs plain versions, exactly, on the same CUDA tensors:
@@ -30,7 +30,9 @@ Phases, each printing its findings, any failure ending the run non-zero:
    the integral kernel alone on the same levels and at band-edge heights
    and 1x1; the survivor kernel on every level and both blocks of the
    mouth and both eyes, B=64 faces and noise at 320x180, on the slots
-   that ``_level_post`` compacts (passed flags); the int8 quantizer on
+   that ``_level_post`` compacts (passed flags); the motion labelling
+   kernel against ``tracker._propagate`` on ``utils/synth.motion_maps``
+   and the blob clip's MHIs at 1280x720 (labels); the int8 quantizer on
    the seven layer inputs of a B=64 720p
    int8 forward and on odd sizes (1, 1023, 1025, 2^24 + 3 elements, all
    zeros), the stochastic quantizer on the conv1 input for two seeds
@@ -71,11 +73,11 @@ Phases, each printing its findings, any failure ending the run non-zero:
 8. tracker and drawing: ``Tracker((1280, 720), device="cuda")`` on a
    moving-blob clip, blobs per frame and the final MHI equal to the CPU
    run over 8 frames, then ``Tracker.process`` over 64 frames in one call
-   timed, with the label-propagation iterations per frame (the changed
-   flag read every 4, 1 and 16 iterations); ``render_detections`` rect,
-   circle and costume blend on a B=64 720p BGR batch on the card against
-   the numpy twins (``host=True``): rect and circle exactly, the blend
-   within 1 (the twin divides by 255 and fuses no multiply-add) and
+   timed, every frame labelled by the motion labelling kernel (three
+   launches a frame, ``vca.tracker.ccl_frames``); ``render_detections``
+   rect, circle and costume blend on a B=64 720p BGR batch on the card
+   against the numpy twins (``host=True``): rect and circle exactly, the
+   blend within 1 (the twin divides by 255 and fuses no multiply-add) and
    exactly the port's CPU blend on its first frames;
 10. serving (run before the times): ``VcaRpcServer(port=0,
     frame_size=(1280, 720))`` on the card, driven by the generated
@@ -96,7 +98,7 @@ Phases, each printing its findings, any failure ending the run non-zero:
     step, each pipeline's ``stats()`` and the host ms of each element
     call; then each pipeline serves its first 48 frames alone, timed the
     same way, and A's tracker runs the served frames alone
-    (``Tracker.process`` ms and label-propagation iterations per frame);
+    (``Tracker.process`` ms per frame);
 11. training (run after 10, before the times): at the shipped width,
     B=32, 320x240 on the card. The distillation teacher
     (``distill.make_teacher``: frontalface_alt, 12 levels, 3 wide) labels
@@ -178,9 +180,10 @@ Phases, each printing its findings, any failure ending the run non-zero:
    took them before, each with the table pass's and the evaluation's
    share; the survivor kernel over both eye engines' 24 levels and 2
    blocks (96 launches) on the slots of phase 3, with its kernels alone
-   under ``torch.profiler``; the pyramid kernel on the ear's plans (128
-   work images); the
-   face path's, the part detectors', the ear's and the learned detectors'
+   under ``torch.profiler``; the motion labelling kernel on a 1280x720
+   MHI of the blob clip against ``tracker._propagate``, with its kernels
+   alone and its bound, and alone on a uniform MHI; the pyramid kernel
+   on the ear's plans (128 work images); the face path's, the part detectors', the ear's and the learned detectors'
    device ms per batch; each detector's ``process()`` frames/s at B=64
    720p.
 
@@ -233,8 +236,8 @@ from nubomedia_vca_tpu_torch.models.face import (  # noqa: E402
 from nubomedia_vca_tpu_torch.ops import quant  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.color import bgr_to_gray  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.cuda import (  # noqa: E402
-    _build, dense_cuda, dense_level_cuda, integral_cuda, quant_cuda,
-    survivor_cuda)
+    _build, dense_cuda, dense_level_cuda, integral_cuda, motion_ccl_cuda,
+    quant_cuda, survivor_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist  # noqa: E402
 from nubomedia_vca_tpu_torch.ops.integral import (  # noqa: E402
     tilted_from_integral, tilted_integral_image)
@@ -243,7 +246,7 @@ from nubomedia_vca_tpu_torch.ops.resize import (  # noqa: E402
 from nubomedia_vca_tpu_torch.parallel import dryrun  # noqa: E402
 from nubomedia_vca_tpu_torch.utils import checkpoint, tracing  # noqa: E402
 from nubomedia_vca_tpu_torch.utils.synth import (  # noqa: E402
-    blob_clip, draw_face, face_clip, face_scene, profile_scene)
+    blob_clip, draw_face, face_clip, face_scene, motion_maps, profile_scene)
 
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import torch_eval_trained_cascades  # noqa: E402
@@ -366,6 +369,9 @@ KERNELS = {
     # the JAX engine's survivor stages are XLA gathers and dots
     "survivor_eval": (survivor_cuda.survivor_eval, "launches",
                       f"{CSRC}/survivor_eval.cu", "none"),
+    # the JAX tracker labels motion components with a lax.while_loop
+    "motion_ccl": (motion_ccl_cuda.motion_ccl, "launches",
+                   f"{CSRC}/motion_ccl.cu", "none"),
 }
 # No path runs it: the JAX package calls quantize_int8_stochastic_pallas
 # from nowhere (it exists for quantization-aware fine-tuning), so its
@@ -476,7 +482,7 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ phases
 def build_all() -> None:
     names = ("pyramid_dense", "dense_level", "integral_tables", "quant_int8",
-             "survivor_eval")
+             "survivor_eval", "motion_ccl")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         ingest = ex.submit(ingest_binding.build_library)
         t0 = time.perf_counter()
@@ -674,6 +680,34 @@ def survivor_slots(eng, work) -> list:
     return out
 
 
+def blob_mhis(dev, n_frames: int):
+    """The tracker's MHIs over the 1280x720 blob clip on `dev`, a frame
+    at a time."""
+    state = tracker.init_state(FRAME[1], FRAME[0], dev)
+    for i, fr in enumerate(blob_clip(n_frames, *FRAME)):
+        state, _ = tracker._update(state, fr, i / 30.0, 20, 0.2)
+        yield state.mhi
+
+
+def check_motion_ccl(dev) -> float:
+    """The motion labelling kernel vs ``tracker._propagate`` on the card,
+    label for label, at 1280x720: ``motion_maps`` and 6 MHIs of the blob
+    clip; → max |err|."""
+    maps = [torch.from_numpy(m).to(dev)
+            for m in motion_maps(FRAME[1], FRAME[0], seed=7).values()]
+    maps += list(blob_mhis(dev, 12))[1::2]
+    err, n_comp = 0.0, 0
+    for mhi in maps:
+        got = motion_ccl_cuda.motion_ccl(mhi, 0.05)
+        want = tracker._propagate(mhi, 0.05)
+        err = max(err, assert_equal(got, want, "motion_ccl labels"))
+        n_comp += int(((want == torch.arange(want.numel(), device=dev))
+                       & (mhi.reshape(-1) > 0)).sum())
+    print(f"motion_ccl: {len(maps)} 1280x720 maps (motion_maps, blob-clip "
+          f"MHIs), {n_comp} components: labels == tracker._propagate")
+    return err
+
+
 def check_survivor(dev, dets, part_frames) -> float:
     """The survivor kernel vs its plain version, bit for bit, on every
     level and block of the mouth and both eyes at 320x180, B=64 faces and
@@ -822,6 +856,7 @@ def predicted_launches(det) -> dict[str, int]:
         # one a level and block of each tilted engine
         "survivor_eval": sum(len(plans) for e in engines
                              for plans in e._survivor_plans.values()),
+        "motion_ccl": 0,
     }
 
 
@@ -1046,11 +1081,11 @@ def ear_device_pass(det, gray):
     return run
 
 
-def time_tracker(dev, frames) -> tuple[float, float, int]:
+def time_tracker(dev, frames) -> tuple[float, int]:
     """``Tracker.process`` over `frames` [N,H,W] (host) in one call of
-    stream 0, on a tracker whose first call (stream 1) captured its CUDA
-    graph → (ms per frame, label-propagation iterations per frame from
-    the ``vca.tracker.seg_iterations`` counter, blobs)."""
+    stream 0, after a first call of stream 1 → (ms per frame, blobs).
+    Every frame must be labelled by the motion labelling kernel
+    (``vca.tracker.ccl_frames``), with no label-propagation iteration."""
     tr = Tracker(FRAME, device=dev)
     tr.process(frames[:4], stream=1)
     t = tracing.TRACER
@@ -1061,21 +1096,25 @@ def time_tracker(dev, frames) -> tuple[float, float, int]:
         t0 = time.perf_counter()
         out = tr.process(frames)
         secs = time.perf_counter() - t0
-        iters = t.counters["vca.tracker.seg_iterations"]
+        counters = dict(t.counters)
     finally:
         t.enabled = False
         t.sections.clear()
         t.counters.clear()
     n = len(frames)
-    return secs * 1000.0 / n, iters / n, sum(len(b) for b in out)
+    if (counters.get("vca.tracker.ccl_frames") != n
+            or "vca.tracker.seg_iterations" in counters):
+        raise AssertionError(f"tracker: {n} frames but counters {counters}")
+    return secs * 1000.0 / n, sum(len(b) for b in out)
 
 
-def tracker_path(dev, gpu) -> None:
+def tracker_path(dev, gpu) -> dict[str, int]:
     """``Tracker.process`` at 1280x720 on the moving-blob clip: blobs per
     frame and the final MHI equal the CPU run over the first frames; then
-    the timed run, and the label-propagation iterations per frame."""
+    the timed run → the kernel launches of the phase (three a frame)."""
     clip = blob_clip(TRACKER_FRAMES, *FRAME)
     n = TRACKER_CPU_FRAMES
+    reset_counts()
     got = Tracker(FRAME, device=dev)
     want = Tracker(FRAME, device="cpu")
     g_out, c_out = got.process(clip[:n]), want.process(clip[:n])
@@ -1087,23 +1126,19 @@ def tracker_path(dev, gpu) -> None:
         raise AssertionError("tracker: no blob on the moving-blob clip")
     print(f"tracker: {n} frames 1280x720, blobs per frame {blobs}: CUDA == "
           f"CPU (blob lists, final MHI)")
-    ms, iters, n_blobs = time_tracker(dev, clip)
+    ms, n_blobs = time_tracker(dev, clip)
     print(f"time: Tracker.process {ms:.4f} ms per 1280x720 frame over "
-          f"{TRACKER_FRAMES} frames in one call ({n_blobs} blobs); "
-          f"label-propagation iterations per frame {iters:.2f} (the changed "
-          f"flag read every {tracker.SEG_CHECK_EVERY}) [{gpu}]")
-    # what the host's read of the flag costs: the same call reading it
-    # after every iteration and after every 16 (exact either way)
-    every = tracker.SEG_CHECK_EVERY
-    try:
-        for k in (1, 16):
-            tracker.SEG_CHECK_EVERY = k
-            ms, iters, _ = time_tracker(dev, clip)
-            print(f"time: Tracker.process with the flag read every {k} "
-                  f"iterations {ms:.4f} ms per frame (iterations per frame "
-                  f"{iters:.2f}) [{gpu}]")
-    finally:
-        tracker.SEG_CHECK_EVERY = every
+          f"{TRACKER_FRAMES} frames in one call ({n_blobs} blobs), every "
+          f"frame labelled by the motion labelling kernel [{gpu}]")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    frames = n + 4 + TRACKER_FRAMES
+    want_counts = dict.fromkeys(KERNELS, 0)
+    want_counts["motion_ccl"] = motion_ccl_cuda.LAUNCHES * frames
+    if counts != want_counts:
+        raise AssertionError(f"tracker launches {counts}, expected "
+                             f"{want_counts}")
+    return counts
 
 
 def drawing_path(dev, gpu, gray_frames) -> None:
@@ -1397,6 +1432,32 @@ def time_survivor(gpu, dets, part) -> dict:
           f"alone {k_us:.1f} us ({top}); plain {p:.4f} ms; bound "
           f"{b_ms:.4f} ms ({b_by}; {n_bytes / 1e6:.2f} MB, "
           f"{n_ops / 1e9:.3f} G ops) [{gpu}]")
+    return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, kernels_us=k_us)
+
+
+def time_motion_ccl(dev, gpu) -> dict:
+    """The motion labelling kernel on one 1280x720 MHI of the blob clip
+    (its 8th frame), in turns with ``tracker._propagate``, with its
+    kernels alone and its bound: the float32 MHI read once and the int64
+    labels written once (12 B a pixel)."""
+    mhi = list(blob_mhis(dev, 8))[-1]
+    kernel = lambda: motion_ccl_cuda.motion_ccl(mhi, 0.05)
+    plain = lambda: tracker._propagate(mhi, 0.05)
+    k, p, runs = in_turns(kernel, plain, 200, 5)
+    k_us, top = kernels_us(kernel)
+    b_ms, b_by = bound(12.0 * mhi.numel(), 0.0)
+    print(f"time: motion labelling kernel {k:.4f} ms per 1280x720 frame "
+          f"({motion_ccl_cuda.LAUNCHES} launches); runs {runs}; kernels "
+          f"alone {k_us:.1f} us ({top}); plain {p:.4f} ms; bound "
+          f"{b_ms:.4f} ms ({b_by}; {12.0 * mhi.numel() / 1e6:.2f} MB) "
+          f"[{gpu}]")
+    # the whole frame in motion: one component over every tile, the
+    # longest root chains of the border and flatten passes
+    full = torch.ones_like(mhi)
+    u_us, u_top = kernels_us(lambda: motion_ccl_cuda.motion_ccl(full, 0.05))
+    print(f"time: motion labelling kernel on a uniform 1280x720 MHI, "
+          f"kernels alone {u_us:.1f} us ({u_top}) [{gpu}]")
     return dict(ms=k, plain_ms=p, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, kernels_us=k_us)
 
@@ -1741,11 +1802,10 @@ def serving_path(dev, gpu) -> dict[str, int]:
           f"batches ({drawn} pixels drawn); native ingest on both "
           f"pipelines, no element exception")
     # A's tracker alone on the served frames (phase 8 times it on the blob
-    # clip): Tracker.process and its label-propagation iterations per frame
-    ms, iters, _ = time_tracker(dev, gray)
+    # clip)
+    ms, _ = time_tracker(dev, gray)
     print(f"serving: A's tracker alone on the {SERVE_FRAMES} served frames, "
-          f"Tracker.process {ms:.4f} ms per frame, label-propagation "
-          f"iterations per frame {iters:.2f} [{gpu}]")
+          f"Tracker.process {ms:.4f} ms per frame [{gpu}]")
     return counts
 
 
@@ -2534,6 +2594,7 @@ def times(dev, gpu, face_eng, dets, frames_720, xs, ears,
         "the right eye's 24 tilted levels (its launches on the path)")
 
     out["survivor_eval"] = time_survivor(gpu, dets, part)
+    out["motion_ccl"] = time_motion_ccl(dev, gpu)
 
     out["pyramid_dense_phase_wide"] = time_pyramid(
         gpu, part, wide_plans(nose)["4 wide levels"],
@@ -2636,6 +2697,7 @@ def main() -> int:
     err = {"pyramid_dense_phase": pyr_err}
     err.update(check_level_kernels(dev, dets, frames[FRAME]))
     err["survivor_eval"] = check_survivor(dev, dets, frames[FRAME])
+    err["motion_ccl"] = check_motion_ccl(dev)
     ear_err, ear_wide_err = check_ear_pyramid(dev, ears, ear_frames[:BATCH])
     err["pyramid_dense_phase"] = max(err["pyramid_dense_phase"], ear_err)
     err["pyramid_dense_phase_wide"] = max(err["pyramid_dense_phase_wide"],
@@ -2661,13 +2723,14 @@ def main() -> int:
     phase("7 learned path")
     for k, v in learned_path(dev).items():
         launches[k] += v
+
+    phase("8 tracker and drawing")
+    for k, v in tracker_path(dev, gpu).items():
+        launches[k] += v
+    drawing_path(dev, gpu, frames[FRAME])
     missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on a path: {missing}")
-
-    phase("8 tracker and drawing")
-    tracker_path(dev, gpu)
-    drawing_path(dev, gpu, frames[FRAME])
 
     phase("10 serving")
     for k, v in serving_path(dev, gpu).items():

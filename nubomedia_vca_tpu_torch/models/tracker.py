@@ -9,10 +9,10 @@ rate-limited "tracker-event" signal.
 
 Device design, as in the JAX package: the per-frame step runs on the
 device with carried state (previous gray frame + MHI). Segmentation
-(OpenCV's floodfill-based cvSegmentMotion) is seeded connected components
-by iterative min-label propagation with pointer jumping: pixels are
-4-connected when their MHI timestamps differ by at most seg_thresh, and a
-component is reported iff it contains a current-timestamp (seed) pixel.
+(OpenCV's floodfill-based cvSegmentMotion) is seeded connected components:
+pixels are 4-connected when their MHI timestamps differ by at most
+seg_thresh, each is labelled with its component's raster-first pixel, and
+a component is reported iff it contains a current-timestamp (seed) pixel.
 Blob bounding boxes come from scatter-min/max over component roots; the
 area filter and distance merge run on the host with the reference's exact
 iteration order (__join_objects, gstnubotracker.cpp:171-200), copied from
@@ -25,13 +25,18 @@ partner it finds. The JAX package caps the components in root order; the
 port's parity tests rebuild that compaction over the port's labels. No
 motion gradient is computed: no blob depends on it.
 
-The JAX package's ``lax.while_loop`` becomes a Python loop whose exit test
-reads a device flag once every ``SEG_CHECK_EVERY`` iterations (one host
-sync per check). That is exact: labels only decrease, so an unchanged
-label map after a group of iterations means every iteration of the group
-was at the fixed point, where an iteration changes nothing. On a CUDA
-device ``Tracker.process`` captures a group of iterations once as a CUDA
-graph: a frame's ~700 small launches are what set the pace otherwise.
+What runs where, chosen by the MHI's device:
+
+* a CUDA tensor is labelled by one hand-written kernel
+  (``ops/cuda/motion_ccl_cuda.py``, ``csrc/motion_ccl.cu``): block-based
+  union-find in three launches a frame, no host read;
+* a CPU tensor runs ``_propagate``, the JAX package's ``lax.while_loop``
+  of min-label propagation with pointer jumping as a Python loop whose
+  exit test reads a "changed" flag once every ``SEG_CHECK_EVERY``
+  iterations. That is exact: labels only decrease, so an unchanged label
+  map after a group of iterations means every iteration of the group was
+  at the fixed point, where an iteration changes nothing. It is the plain
+  version that the kernel is held to, label for label.
 
 Units: timestamps are pts seconds as float32, as in the JAX package (the
 reference's CPU-clock milliseconds collapse the MHI to the current
@@ -46,9 +51,11 @@ import numpy as np
 import torch
 
 from ..cascade.engine import _resolve_device
+from ..ops.cuda import motion_ccl_cuda
 from ..utils.tracing import count, trace
 
 # label-propagation iterations between two reads of the "changed" flag
+# (the plain loop, ``_propagate``)
 SEG_CHECK_EVERY = 4
 
 
@@ -132,69 +139,26 @@ def _step(lab, links):
     return torch.minimum(m, m.reshape(-1)[m])
 
 
-class _GraphedSteps:
-    """``SEG_CHECK_EVERY`` iterations over [H, W] maps on a CUDA device,
-    captured once as a CUDA graph: a group of iterations is one launch in
-    place of about 60, so the card, not the host's issue of the launches,
-    sets the pace. Inputs and outputs live in the fixed buffers
-    ``links`` and ``labels``; ``before`` holds the labels the group
-    started from."""
-
-    def __init__(self, h: int, w: int, device: torch.device):
-        self.links = torch.zeros((4, h, w), dtype=torch.bool, device=device)
-        self.first = torch.arange(h * w, dtype=torch.int64,
-                                  device=device).reshape(h, w)
-        self.labels = self.first.clone()
-        self.before = self.first.clone()
-        with torch.cuda.device(device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):       # warm-up before capture
-                self._group()
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
-                self._group()
-
-    def _group(self) -> None:
-        self.before.copy_(self.labels)
-        lab = self.labels
-        for _ in range(SEG_CHECK_EVERY):
-            lab = _step(lab, self.links)
-        self.labels.copy_(lab)
-
-
-def _propagate(mhi, seg_thresh, iterations=None,
-               graphed: _GraphedSteps | None = None) -> torch.Tensor:
+def _propagate(mhi, seg_thresh, iterations=None) -> torch.Tensor:
     """Component labels of the 4-neighbor |Δmhi| <= seg_thresh graph over
     the non-zero MHI pixels: [H*W] int64, each pixel labelled with its
     component's root, the component's raster-first pixel (a zero-MHI
-    pixel is its own root). Runs the iterations through `graphed` when
-    given (the same iterations, launched as one graph a group). Appends
-    the label-propagation iterations run to `iterations` when given."""
+    pixel is its own root). The plain loop, on any device: min-label
+    propagation with pointer jumping, one host read of the "changed" flag
+    every ``SEG_CHECK_EVERY`` iterations. Appends the iterations run to
+    `iterations` when given."""
     H, W = mhi.shape
     links = _links(mhi, seg_thresh)
     n_iter = 0
-    if graphed is None:
-        labels = torch.arange(H * W, dtype=torch.int64,
-                              device=mhi.device).reshape(H, W)
-        while True:
-            before = labels
-            for _ in range(SEG_CHECK_EVERY):
-                labels = _step(labels, links)
-            n_iter += SEG_CHECK_EVERY
-            if torch.equal(labels, before):
-                break
-    else:
-        graphed.links.copy_(links)
-        graphed.labels.copy_(graphed.first)
-        while True:
-            graphed.graph.replay()
-            n_iter += SEG_CHECK_EVERY
-            if torch.equal(graphed.labels, graphed.before):
-                break
-        labels = graphed.labels.clone()
+    labels = torch.arange(H * W, dtype=torch.int64,
+                          device=mhi.device).reshape(H, W)
+    while True:
+        before = labels
+        for _ in range(SEG_CHECK_EVERY):
+            labels = _step(labels, links)
+        n_iter += SEG_CHECK_EVERY
+        if torch.equal(labels, before):
+            break
     if iterations is not None:
         iterations.append(n_iter)
     return labels.reshape(-1)
@@ -223,19 +187,22 @@ def _boxes(lab_flat, sel, H, W):
     return torch.stack([rx, ry, rw, rh], dim=-1)
 
 
-def segment_motion(mhi, ts, seg_thresh, iterations=None,
-                   graphed: _GraphedSteps | None = None) -> torch.Tensor:
+def segment_motion(mhi, ts, seg_thresh, iterations=None) -> torch.Tensor:
     """cv::motempl::segmentMotion's rects: every component of the
     4-neighbor |Δmhi| <= seg_thresh graph over the non-zero MHI pixels
     that holds a pixel of timestamp `ts`, as [K,4] int32 x,y,w,h, however
     many there are, in the raster order of each component's first such
     (seed) pixel, the order in which segmentMotion's scan starts their
-    flood fills. Appends the label-propagation iterations run to
-    `iterations` when given; propagates through `graphed` when given.
-    Reads the number of components (one sync)."""
+    flood fills. A CUDA MHI is labelled by the kernel
+    (``motion_ccl_cuda.motion_ccl``), any other by ``_propagate``, which
+    appends its iterations to `iterations` when given. Reads the number
+    of components (one sync)."""
     H, W = mhi.shape
     n = H * W
-    lab_flat = _propagate(mhi, seg_thresh, iterations, graphed)
+    if mhi.device.type == "cuda":
+        lab_flat = motion_ccl_cuda.motion_ccl(mhi, seg_thresh)
+    else:
+        lab_flat = _propagate(mhi, seg_thresh, iterations)
     flat_idx = torch.arange(n, dtype=torch.int64, device=mhi.device)
     seed = ((mhi == ts) & (mhi > 0)).reshape(-1)
     first_seed = _reduce(lab_flat, n, torch.where(seed, flat_idx, n).to(
@@ -324,7 +291,8 @@ class Tracker:
         self._states: dict[int, TrackerState] = {
             0: init_state(self.h, self.w, self.device)}
         self._frame_idx: dict[int, int] = {0: 0}
-        self._graphed: _GraphedSteps | None = None    # on a CUDA device
+        if self.device.type == "cuda":
+            motion_ccl_cuda.load()      # built now, not by a frame
 
     # stream-0 views keep the single-stream surface
     @property
@@ -356,9 +324,10 @@ class Tracker:
         one, in its order), then the area filter and merge. The frames
         are uploaded once and the rects of all N frames come back to the
         host in one copy. No motion gradient is computed: no blob depends
-        on it. On a CUDA device the label propagation launches a CUDA
-        graph a group of iterations (`_GraphedSteps`, captured on the
-        first call)."""
+        on it. On a CUDA device each frame's components are labelled by
+        the union-find kernel (three launches, no host read; counted in
+        ``vca.tracker.ccl_frames``), elsewhere by the plain loop (its
+        iterations counted in ``vca.tracker.seg_iterations``)."""
         with trace("vca.tracker.process", {"stream": stream}):
             gray_frames = np.asarray(gray_frames)
             if gray_frames.ndim == 2:
@@ -372,16 +341,13 @@ class Tracker:
             count("vca.tracker.frames", len(gray_frames))
             with trace("vca.tracker.upload"):
                 frames = _as_uint8(gray_frames, self.device)
-            if self._graphed is None and self.device.type == "cuda":
-                self._graphed = _GraphedSteps(self.h, self.w, self.device)
             all_rects, iters = [], []
             for fr in frames:
                 state, ts = _update(state, fr, idx / self.fps,
                                     cfg.threshold, cfg.mhi_duration)
                 with trace("vca.tracker.segment"):
                     all_rects.append(segment_motion(
-                        state.mhi, ts, cfg.seg_thresh, iters,
-                        self._graphed))
+                        state.mhi, ts, cfg.seg_thresh, iters))
                 idx += 1
             # a copy of the last frame: a view would keep the call's whole
             # batch of frames on the device for as long as the stream lives
@@ -389,7 +355,8 @@ class Tracker:
                 state, prev_gray=state.prev_gray.clone())
             self._frame_idx[stream] = idx
             sizes = [len(r) for r in all_rects]
-            count("vca.tracker.seg_iterations", sum(iters))
+            if iters:       # the plain loop ran: the kernel counts none
+                count("vca.tracker.seg_iterations", sum(iters))
             count("vca.tracker.blobs_seeded", sum(sizes))
             with trace("vca.tracker.fetch"):
                 rects = torch.cat(all_rects).cpu().numpy()

@@ -2,7 +2,9 @@
 OpenCV), so a host without cv2 can make frames the port's cascades fire
 on: cartoon frontal faces for the real ``haarcascade_frontalface_alt.xml``,
 cartoon profile heads for the bundled synthetic profile and ear cascades
-(``profile_scene``), and moving blobs for the tracker (``blob_clip``).
+(``profile_scene``), moving blobs for the tracker (``blob_clip``), and
+motion-history maps that test the labelling of motion components
+(``motion_maps``).
 
 The drawing follows the shapes of the JAX package's fixtures
 (``tests/fixtures.py``, ``models/synth.draw_profile_face``); pixel edges
@@ -216,3 +218,56 @@ def blob_clip(n_frames: int = 12, w: int = 320, h: int = 240,
                   int((280 - 7 * p) * kx), int(200 * ky), 25)
         frames.append(img)
     return np.stack(frames)
+
+
+# float32 seg_thresh of the tracker's default, and the next float above it
+_SEG_F32 = np.float32(0.05)
+_SEG_ABOVE = np.nextafter(_SEG_F32, np.float32(1.0))
+
+
+def motion_maps(h: int, w: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """[h, w] float32 motion-history maps (timestamps, 0 for no motion)
+    for the tracker's seg_thresh of 0.05, by name:
+
+    * ``serpentine``: in the top half a one-pixel snake over every second
+      row, joined at alternating ends; in the bottom half one over every
+      second column: two long components that cross every tile border;
+    * ``speckle``: 35% of the pixels at a tenth of 1..10, the rest 0:
+      mostly one-pixel components (equal neighbours link);
+    * ``thresh_edge``: bands of 5 rows, each a checkerboard of a small
+      base and the base plus float32(0.05) in the left half and plus the
+      next float above it in the right half (the base is a multiple of
+      2^-28 under 0.0125, so both sums and differences are exact): the
+      left half links, the right half does not;
+    * ``frame_edges``: runs on all four edges that a wrap-around would
+      join (equal values on opposite edges), the four corners and a box
+      in the bottom-right corner;
+    * ``uniform``: the whole frame at one timestamp (a light switched
+      on): one component over every tile;
+    * ``zeros``: no motion."""
+    rng = np.random.RandomState(seed)
+    snake = np.zeros((h, w), np.float32)
+    top = h // 2
+    for j, y in enumerate(range(0, top, 2)):
+        snake[y] = 1.0
+        if y + 2 < top:
+            snake[y + 1, w - 1 if j % 2 == 0 else 0] = 1.0
+    for j, x in enumerate(range(0, w, 2)):
+        snake[top + 1:, x] = 2.0
+        if x + 2 < w:
+            snake[top + 1 if j % 2 == 0 else h - 1, x + 1] = 2.0
+    speckle = np.where(rng.rand(h, w) < 0.35,
+                       rng.randint(1, 11, (h, w)) / 10.0,
+                       0.0).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = ((yy // 5) % 12 + 1) * np.float32(2.0 ** -10)
+    step = np.where(xx < w // 2, _SEG_F32, _SEG_ABOVE)
+    edge = (base + np.where((yy + xx) % 2 == 1, step, 0)).astype(np.float32)
+    frame = np.zeros((h, w), np.float32)
+    frame[0, 2:max(3, w // 3)] = frame[h - 1, 2:max(3, w // 3)] = 1.0
+    frame[2:max(3, h // 3), 0] = frame[2:max(3, h // 3), w - 1] = 2.0
+    frame[0, 0] = frame[0, w - 1] = frame[h - 1, 0] = frame[h - 1, w - 1] = 3.0
+    frame[h - 1 - h // 4:h - 1, w - 1 - w // 4:] = 4.0
+    return {"serpentine": snake, "speckle": speckle, "thresh_edge": edge,
+            "frame_edges": frame, "uniform": np.ones((h, w), np.float32),
+            "zeros": np.zeros((h, w), np.float32)}

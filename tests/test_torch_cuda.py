@@ -2,13 +2,14 @@
 dense kernel, its bands on the levels the row-strip kernel took before
 included, the tilted kernels of the level dense phase, the tilted-table
 kernel, the integral-tables kernel, the survivor kernel of tilted
-cascades, the int8 quantizers) against its plain PyTorch version on the
-card, and the face, part, ear and learned detectors, the
-motion tracker, the drawing ops and the learned detectors' training path
-(the distillation teacher, train steps, the train-state round trip), the
-multi-device dry run at world size 1, the cascade trainer's GEMM, the
-entry point and the benchmark's gate (``bench_torch.py``) on CUDA against
-the port's CPU run (the drawing also against its numpy twins).
+cascades, the motion labelling kernel, the int8 quantizers) against its
+plain PyTorch version on the card, and the face, part, ear and learned
+detectors, the motion tracker, the drawing ops and the learned
+detectors' training path (the distillation teacher, train steps, the
+train-state round trip), the multi-device dry run at world size 1, the
+cascade trainer's GEMM, the entry point and the benchmark's gate
+(``bench_torch.py``) on CUDA against the port's CPU run (the drawing
+also against its numpy twins).
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. On a
 GPU host without JAX, run them with
@@ -41,14 +42,15 @@ from nubomedia_vca_tpu_torch.models.face import (DEFAULT_FACE_CASCADE,
                                                  FaceDetector)
 from nubomedia_vca_tpu_torch.ops import quant
 from nubomedia_vca_tpu_torch.ops.cuda import (dense_cuda, dense_level_cuda,
-                                              integral_cuda, quant_cuda,
-                                              survivor_cuda)
+                                              integral_cuda, motion_ccl_cuda,
+                                              quant_cuda, survivor_cuda)
 from nubomedia_vca_tpu_torch.ops.histogram import equalize_hist
 from nubomedia_vca_tpu_torch.ops.integral import tilted_integral_image
 from nubomedia_vca_tpu_torch.ops.resize import resize_linear_exact
 from nubomedia_vca_tpu_torch.utils import checkpoint, tracing
 from nubomedia_vca_tpu_torch.utils.synth import (blob_clip, face_clip,
-                                                 face_scene, profile_scene)
+                                                 face_scene, motion_maps,
+                                                 profile_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -611,23 +613,92 @@ def test_tracker_step_cuda_equals_cpu(cuda_device):
     assert gpu.process(clip) == cpu.process(clip)
 
 
-def test_tracker_graphed_propagation_equals_eager(cuda_device):
-    """The label propagation launched as a CUDA graph a group of
-    iterations gives the eager loop's labels and iteration count on every
-    frame of a clip, one graph reused from frame to frame."""
-    clip = blob_clip(12)
-    state = tracker.init_state(240, 320, cuda_device)
-    graphed = tracker._GraphedSteps(240, 320, cuda_device)
-    moved = 0
-    for i, fr in enumerate(clip):
+def _blob_mhis(dev, n_frames, w, h):
+    """The tracker's MHIs over the blob clip on `dev`, frame by frame."""
+    state = tracker.init_state(h, w, dev)
+    for i, fr in enumerate(blob_clip(n_frames, w, h)):
         state, _ = tracker._update(state, fr, i / 30.0, 20, 0.2)
-        it_e, it_g = [], []
-        want = tracker._propagate(state.mhi, 0.05, it_e)
-        got = tracker._propagate(state.mhi, 0.05, it_g, graphed)
-        assert torch.equal(got, want), i
-        assert it_g == it_e, i
-        moved += int(it_e[0] > tracker.SEG_CHECK_EVERY)
-    assert moved > 0
+        yield state.mhi
+
+
+@pytest.mark.parametrize("case", ["blob_clip", "serpentine", "speckle",
+                                  "thresh_edge", "frame_edges", "uniform",
+                                  "zeros"])
+def test_motion_ccl_equals_propagate(cuda_device, case):
+    """The union-find kernel's labels equal the plain loop's
+    (``_propagate``, on the card and on the CPU) bit for bit at a size
+    that no tile divides, 321x239: the ``utils/synth.motion_maps`` cases
+    and the blob clip's MHIs; three launches a frame."""
+    w, h = 321, 239
+    if case == "blob_clip":
+        mhis = list(_blob_mhis(cuda_device, 10, w, h))[2::2]
+    else:
+        mhis = [torch.from_numpy(motion_maps(h, w, seed=7)[case]).to(
+            cuda_device)]
+    for mhi in mhis:
+        before = motion_ccl_cuda.motion_ccl.launches
+        got = motion_ccl_cuda.motion_ccl(mhi, 0.05)
+        assert motion_ccl_cuda.motion_ccl.launches == before + 3
+        assert got.dtype == torch.int64 and got.shape == (h * w,)
+        assert torch.equal(got, tracker._propagate(mhi, 0.05))
+        assert torch.equal(got.cpu(), tracker._propagate(mhi.cpu(), 0.05))
+
+
+def test_motion_ccl_on_benchmark_footage(cuda_device):
+    """The kernel's labels equal ``_propagate``'s on the MHIs of the
+    tracker cell's 1280x720 footage (``vcabench/frozen/motion.py``, three
+    streams of the ``motion_archive`` mix, every eighth frame of a
+    clip)."""
+    import json
+
+    from vcabench.frozen import motion
+
+    with open(os.path.join(os.path.dirname(__file__), "..", "vcabench",
+                           "traffic", "motion_archive.json")) as f:
+        mix = json.load(f)
+    frame = (1280, 720)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4000000001)
+    n_comp = 0
+    for stream in motion.layout(mix, frame, 4000000001)[:3]:
+        clip = motion.draw_clip(stream, frame, mix["clip_frames"], mix, gen,
+                                cuda_device)
+        state = tracker.init_state(frame[1], frame[0], cuda_device)
+        for i, fr in enumerate(clip):
+            state, _ = tracker._update(state, fr, i / 30.0, 20, 0.2)
+            if i % 8 == 7:
+                got = motion_ccl_cuda.motion_ccl(state.mhi, 0.05)
+                assert torch.equal(got, tracker._propagate(state.mhi, 0.05))
+                n_comp += int(((got == torch.arange(
+                    got.numel(), device=cuda_device))
+                    & (state.mhi.reshape(-1) > 0)).sum())
+    assert n_comp > 0
+
+
+def test_tracker_process_cuda_counts_kernel_frames(cuda_device):
+    """``Tracker.process`` on the card equals the CPU run on the blob clip;
+    while tracing, ``vca.tracker.ccl_frames`` equals ``vca.tracker.frames``
+    and no ``vca.tracker.seg_iterations`` is counted (no iteration runs)."""
+    clip = blob_clip(12)
+    gpu = tracker.Tracker((320, 240), device=cuda_device)
+    cpu = tracker.Tracker((320, 240), device="cpu")
+    t = tracing.TRACER
+    t.enabled = True
+    try:
+        t.counters.clear()
+        before = motion_ccl_cuda.motion_ccl.launches
+        got = gpu.process(clip)
+        counters = dict(t.counters)
+    finally:
+        t.enabled = False
+        t.sections.clear()
+        t.counters.clear()
+    assert got == cpu.process(clip)
+    assert sum(map(len, got)) > 0
+    assert counters["vca.tracker.ccl_frames"] == counters[
+        "vca.tracker.frames"] == len(clip)
+    assert "vca.tracker.seg_iterations" not in counters
+    assert motion_ccl_cuda.motion_ccl.launches == before + 3 * len(clip)
 
 
 @pytest.mark.parametrize("mode", ["rect", "circle", "overlay"])
